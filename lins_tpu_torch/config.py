@@ -4,8 +4,12 @@ A copy of `lins_tpu/config.py` with every field name kept, so one
 `to_dict()` drives both packages in the parity tests.  In the port,
 `use_pallas` only picks the split per-chunk driver shape (pre -> label ->
 rest); on the card the connected-components labelling always runs as the
-CUDA kernel in `lins_tpu_torch/ops/label.py`.  `use_pallas_select` and the
-mapping fields are carried for slice 2 (mapping) and read by nothing yet.
+CUDA kernel in `lins_tpu_torch/ops/label.py`.  Likewise the scan-to-map
+candidate selection always runs as the CUDA kernel in
+`lins_tpu_torch/ops/select.py`; `use_pallas_select` only picks its prune
+bound (ops/grid_nn.gather_candidates).  The loop-closure fields are read
+by slice 3 (graph backend): the mapper refuses `loop_attempts=True` and the
+radius-selected map until then.
 """
 from __future__ import annotations
 
@@ -43,7 +47,8 @@ class SlamConfig:
     feature_mode: str = "fast"
     # split per-chunk driver (pre -> label kernel -> rest); see module doc
     use_pallas: bool = False
-    # candidate-selection kernel of the mapping backend (not in the port yet)
+    # prune bound of the mapping backend's candidate selection: the first
+    # dropped distance (True) or the C-th kept one; see module doc
     use_pallas_select: bool = False
     edge_feature_num: int = 2        # sharp corners per sector
     edge_less_feature_num: int = 20  # less-sharp corners per sector

@@ -40,13 +40,6 @@ class FilterState(NamedTuple):
     gyr_last: torch.Tensor  # (3,)
 
 
-def tree_where(cond, a, b):
-    """Field-wise torch.where over two NamedTuples or dicts of tensors."""
-    if isinstance(a, dict):
-        return {k: torch.where(cond, a[k], b[k]) for k in a}
-    return type(a)(*(torch.where(cond, x, y) for x, y in zip(a, b)))
-
-
 def box_plus(s: FilterState, dx: torch.Tensor) -> FilterState:
     """State ⊞ error vector (KalmanFilter.hpp:71-81)."""
     dq = so3.exp_axis(dx[ATT])

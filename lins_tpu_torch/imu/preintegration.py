@@ -11,7 +11,7 @@ from typing import NamedTuple
 import torch
 
 from lins_tpu_torch.geom import so3
-from lins_tpu_torch.imu.eskf import tree_where
+from lins_tpu_torch.utils.tree import tree_where
 
 
 class Preintegration(NamedTuple):

@@ -1,0 +1,453 @@
+"""Mapping backend driver (port of the recent-window path of
+`lins_tpu/mapping/mapper.py`; reference C19-C21, the lidar_mapping_node.cpp
+main loop without the ROS plumbing).
+
+Per mapped scan (throttled to mapping_process_interval, the reference's
+0.3 s gate, lidar_mapping_node.cpp:1821):
+  1. warm-start pose = last map correction ∘ new odometry pose
+     (transformAssociateToMap, :411-536)
+  2. voxel-downsample the scan's corner/surf/outlier clouds and merge
+     surf+outlier into the GN query set (downsampleCurrentScan, :1326-1349)
+  3. scan-to-map GN against the cached local-map grids (:1635-1652)
+  4. roll/pitch blend with the latest IMU attitude, weight 0.998/0.002
+     (transformUpdate, :538-577)
+  5. keyframe gate at 0.3 m (:1660-1667): store + incremental window map +
+     the odometry edge of the pose graph
+
+Branches the host knows stay on the host: which scans are mapped (the
+cadence, `plan_chunk`) and whether the map is still empty (the first
+mapping step ever).  Branches that depend on device values — the keyframe
+gate and the compaction rebuild — are computed and selected on the card
+(utils/tree.cond), so a chunk reads nothing back to the host.
+
+This slice runs the reference's window-without-loops configuration
+(`loop_closure_enabled=True, loop_attempts=False, lc_map_mode="recent"`).
+Loop attempts, the pose-graph solve, `final_solve`, the radius-selected map
+and the sharded store are the port's slice 3 and raise
+NotImplementedError.
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from lins_tpu_torch.config import SlamConfig
+from lins_tpu_torch.geom import so3
+from lins_tpu_torch.graph import pose_graph as pg
+from lins_tpu_torch.mapping import keyframes as kf
+from lins_tpu_torch.mapping import local_map as lmn
+from lins_tpu_torch.mapping.keyframes import take_row
+from lins_tpu_torch.mapping.scan2map import scan_to_map_grids
+from lins_tpu_torch.ops.voxel import voxel_downsample
+from lins_tpu_torch.ops.voxel_map import VoxDelta, VoxelMap
+from lins_tpu_torch.utils.device import resolve_device, resolve_dtype
+from lins_tpu_torch.utils.tree import cond
+
+_SLICE3 = "the port's slice 3 (graph backend)"
+
+
+class MapperState(NamedTuple):
+    store: kf.KeyframeStore
+    lmap: lmn.LocalMapState
+    bef_pos: torch.Tensor   # odometry pose at the last correction
+    bef_quat: torch.Tensor
+    aft_pos: torch.Tensor   # refined pose at the last correction
+    aft_quat: torch.Tensor
+    edges: pg.EdgeSet       # pose-graph factors (odometry + loop)
+    n_loops: torch.Tensor   # () int32
+
+
+def derive_caps(cfg: SlamConfig, corner_cap=None, surf_cap=None,
+                outlier_cap=None):
+    """Per-keyframe cloud capacities scaled from the sensor preset (the
+    VLP-16 preset gives 1024/4096/2048)."""
+    corner_cap = corner_cap or max(256, cfg.max_less_sharp // 2)
+    surf_cap = surf_cap or max(1024, (cfg.max_less_flat * 2) // 3)
+    outlier_cap = outlier_cap or max(256, cfg.max_outlier // 2)
+    return corner_cap, surf_cap, outlier_cap
+
+
+def init_mapper(cfg: SlamConfig, corner_cap=1024, surf_cap=4096,
+                outlier_cap=2048, n_window=50, grid: lmn.GridParams = None,
+                dtype=torch.float32, device=None) -> MapperState:
+    z = torch.zeros(3, dtype=dtype, device=device)
+    e = so3.quat_identity(dtype, device=device)
+    gp = grid or lmn.grid_params(cfg)
+    return MapperState(
+        store=kf.empty_store(cfg, corner_cap, surf_cap, outlier_cap, dtype,
+                             device),
+        lmap=lmn.empty_local_map(cfg, n_window, corner_cap, surf_cap,
+                                 outlier_cap, dtype, gp, device),
+        bef_pos=z, bef_quat=e, aft_pos=z, aft_quat=e,
+        edges=pg.empty_edges(cfg.max_keyframes + 128, dtype, device),
+        n_loops=torch.zeros((), dtype=torch.int32, device=device))
+
+
+def warm_start(state: MapperState, odo_pos, odo_quat):
+    """T_warm = T_aft ∘ T_bef⁻¹ ∘ T_odo (transformAssociateToMap)."""
+    dq = so3.quat_mul(state.aft_quat, so3.quat_inv(state.bef_quat))
+    pos = state.aft_pos + so3.quat_rotate(dq, odo_pos - state.bef_pos)
+    quat = so3.quat_normalize(so3.quat_mul(dq, odo_quat))
+    return pos, quat
+
+
+def imu_roll_pitch(acc, gravity: float):
+    """Host-side roll/pitch from a raw accelerometer sample (the stand-in
+    for the reference mapping node's AHRS-orientation IMU queue,
+    lidar_mapping_node.cpp:726-735; same math as calculateRPfromGravity)."""
+    acc = np.asarray(acc, float)
+    sz = np.sign(acc[2]) or 1.0
+    pitch = -sz * np.arcsin(np.clip(acc[0] / gravity, -1.0, 1.0))
+    roll = sz * np.arcsin(np.clip(acc[1] / gravity, -1.0, 1.0))
+    return np.asarray([roll, pitch])
+
+
+class ScanClouds(NamedTuple):
+    """One scan's clouds as the mapping step uses them (body frame)."""
+    corner: torch.Tensor      # (corner_cap, 3) voxel-downsampled
+    corner_ok: torch.Tensor
+    surf: torch.Tensor        # (surf_cap, 3)
+    surf_ok: torch.Tensor
+    outlier: torch.Tensor     # (outlier_cap, 3)
+    outlier_ok: torch.Tensor
+    query_corner: torch.Tensor  # GN corner queries (first map_query_corner)
+    query_corner_ok: torch.Tensor
+    query_surf: torch.Tensor    # GN surf+outlier queries
+    query_surf_ok: torch.Tensor
+    query_overflow: torch.Tensor  # () bool: a query cap dropped points
+
+
+def downsample_scan(corner_xyz, corner_valid, surf_xyz, surf_valid,
+                    outl_xyz, outl_valid, cfg: SlamConfig, corner_cap: int,
+                    surf_cap: int, outlier_cap: int, dtype) -> ScanClouds:
+    """Voxel-downsample the scan's clouds at the map leaf sizes; the GN
+    surf query set is surf+outlier re-filtered together
+    (downsampleCurrentScan, lidar_mapping_node.cpp:1326-1349)."""
+    c_ds, c_ok = voxel_downsample(corner_xyz.to(dtype), corner_valid,
+                                  cfg.map_corner_leaf, corner_cap)
+    s_ds, s_ok = voxel_downsample(surf_xyz.to(dtype), surf_valid,
+                                  cfg.map_surf_leaf, surf_cap)
+    o_ds, o_ok = voxel_downsample(outl_xyz.to(dtype), outl_valid,
+                                  cfg.map_outlier_leaf, outlier_cap)
+    st_ds, st_ok = voxel_downsample(
+        torch.cat([s_ds, o_ds]), torch.cat([s_ok, o_ok]),
+        cfg.map_surf_leaf, surf_cap + outlier_cap)
+    # GN query views: voxel_downsample compacts valid entries to the
+    # front, so the measured-occupancy caps (cfg.map_query_*) drop nothing
+    # in practice; `query_overflow` flags the scan if they do
+    qc_cap = min(cfg.map_query_corner or corner_cap, corner_cap)
+    qs_cap = min(cfg.map_query_surf or (surf_cap + outlier_cap),
+                 surf_cap + outlier_cap)
+    return ScanClouds(c_ds, c_ok, s_ds, s_ok, o_ds, o_ok,
+                      c_ds[:qc_cap], c_ok[:qc_cap], st_ds[:qs_cap],
+                      st_ok[:qs_cap],
+                      torch.any(c_ok[qc_cap:]) | torch.any(st_ok[qs_cap:]))
+
+
+def _mapping_step_impl(state: MapperState, odo_pos, odo_quat, time,
+                       corner_xyz, corner_valid, surf_xyz, surf_valid,
+                       outl_xyz, outl_valid, imu_rp, cfg: SlamConfig,
+                       corner_cap: int, surf_cap: int, outlier_cap: int,
+                       n_window: int, gp: lmn.GridParams, has_map: bool):
+    """One mapping step of the recent-window map.  `has_map` (host bool):
+    whether any keyframe was stored before, false only on the first step
+    ever.  Returns (new state, refined pos, quat, metrics)."""
+    dtype, dev = state.bef_pos.dtype, state.bef_pos.device
+    odo_pos = odo_pos.to(dtype)
+    odo_quat = odo_quat.to(dtype)
+    t_w, q_w = warm_start(state, odo_pos, odo_quat)
+    sc = downsample_scan(corner_xyz, corner_valid, surf_xyz, surf_valid,
+                         outl_xyz, outl_valid, cfg, corner_cap, surf_cap,
+                         outlier_cap, dtype)
+    c_ds, c_ok, s_ds, s_ok, o_ds, o_ok = sc[:6]
+
+    lmap, store = state.lmap, state.store
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    if has_map:
+        t_m, q_m, iters, n_sel, n_refresh = scan_to_map_grids(
+            t_w, q_w, sc.query_corner, sc.query_corner_ok, sc.query_surf,
+            sc.query_surf_ok, lmap.corner_grid, lmap.surf_grid,
+            lmap.n_corner, lmap.n_surf, cfg)
+    else:
+        t_m, q_m, iters, n_sel, n_refresh = t_w, q_w, zero, zero, zero
+
+    # transformUpdate: blend roll/pitch with the IMU attitude, yaw untouched
+    rpy_m = so3.quat_to_rpy(q_m)
+    imu_rp = imu_rp.to(dtype)
+    rp = torch.where(torch.all(torch.isfinite(imu_rp)), imu_rp, rpy_m[:2])
+    q_m = so3.rpy_to_quat(torch.stack([
+        0.998 * rpy_m[0] + 0.002 * rp[0],
+        0.998 * rpy_m[1] + 0.002 * rp[1],
+        rpy_m[2]]))
+
+    # keyframe gate: 0.3 m from the previous keyframe (always the first)
+    last_slot = torch.remainder(torch.clamp(store.count - 1, min=0),
+                                store.capacity)
+    dist = torch.linalg.vector_norm(t_m - take_row(store.pos, last_slot))
+
+    def do_add():
+        new_id = store.count
+        store2 = kf.add_keyframe(store, t_m, q_m, time, c_ds, c_ok,
+                                 s_ds, s_ok, o_ds, o_ok)
+        # recent-window incremental insert (evict-subtract + add)
+        lm = lmn.push_keyframe(lmap, new_id, t_m, q_m, c_ds, c_ok, s_ds,
+                               s_ok, o_ds, o_ok, gp)
+        # periodic compaction: tombstone leak, cell overflow and float sum
+        # drift are bounded by a full rebuild every map_rebuild_interval
+        # keyframes (computed and selected on the card)
+        need = (lm.pushes >= cfg.map_rebuild_interval) | lm.rebuild_due
+        ids, okm, wslots = lmn.recent_window_ids(store2, n_window)
+        lm = cond(need, lambda: lmn.rebuild_window(lm, store2, ids, okm,
+                                                   wslots, gp), lm)
+        edges = state.edges
+        if has_map:
+            # odometry between-factor prev_kf -> new_kf with absolute ids
+            # (saveKeyFramesAndFactor, lidar_mapping_node.cpp:1693-1703)
+            t_rel, q_rel = pg.relative_pose(take_row(store.pos, last_slot),
+                                            take_row(store.quat, last_slot),
+                                            t_m, q_m)
+            edges = pg.add_edge(edges, torch.clamp(new_id - 1, min=0),
+                                new_id, t_rel, q_rel,
+                                1.0 / cfg.pg_odom_rot_var,
+                                1.0 / cfg.pg_odom_pos_var)
+        return store2, lm, edges
+
+    if has_map:
+        add = dist > cfg.keyframe_gate_meters
+        store, lmap, edges = cond(add, do_add, (store, lmap, state.edges))
+    else:
+        add = torch.ones((), dtype=torch.bool, device=dev)
+        store, lmap, edges = do_add()
+
+    new_state = MapperState(store=store, lmap=lmap, bef_pos=odo_pos,
+                            bef_quat=odo_quat, aft_pos=t_m, aft_quat=q_m,
+                            edges=edges, n_loops=state.n_loops)
+    metrics = dict(iters=iters, n_matches=n_sel, n_refresh=n_refresh,
+                   keyframe_added=add,
+                   warm_dist=torch.linalg.vector_norm(t_m - t_w),
+                   query_overflow=sc.query_overflow)
+    return new_state, t_m, q_m, metrics
+
+
+def mapper_state_from_numpy(d, device=None, dtype=torch.float32):
+    """The reference package's MapperState as the port's tensors.
+
+    `d` is the reference state with numpy leaves (for example
+    `jax.tree_util.tree_map(np.asarray, state)`), or the same fields as
+    nested dicts: store, lmap (sel, dc, dsf, corner_vm, surf_vm, pushes),
+    bef/aft pose, edges, n_loops.  Floating fields become `dtype`, integer
+    fields int32, masks bool; the voxel maps keep their static sizes.
+    """
+    def get(o, k):
+        return o[k] if isinstance(o, dict) else getattr(o, k)
+
+    def tensor(x):
+        a = np.array(x)        # a writable copy: JAX hands out read-only views
+        if a.dtype == bool:
+            return torch.as_tensor(a, device=device)
+        if np.issubdtype(a.dtype, np.integer):
+            return torch.as_tensor(a.astype(np.int32), device=device)
+        return torch.as_tensor(a.astype(np.float64), device=device).to(dtype)
+
+    def fields(cls, src):
+        return cls(**{f: tensor(get(src, f)) for f in cls._fields})
+
+    def vmap_(src):
+        return VoxelMap(
+            **{f: tensor(get(src, f)) for f in ("cells", "hwm", "vcoord",
+                                                "vsum", "vcnt", "n_live",
+                                                "overflow")},
+            leaf=float(get(src, "leaf")), m=int(get(src, "m")),
+            table=int(get(src, "table")), cap=int(get(src, "cap")),
+            nb=int(get(src, "nb")))
+
+    lm = get(d, "lmap")
+    return MapperState(
+        store=fields(kf.KeyframeStore, get(d, "store")),
+        lmap=lmn.LocalMapState(
+            sel=tensor(get(lm, "sel")), dc=fields(VoxDelta, get(lm, "dc")),
+            dsf=fields(VoxDelta, get(lm, "dsf")),
+            corner_vm=vmap_(get(lm, "corner_vm")),
+            surf_vm=vmap_(get(lm, "surf_vm")),
+            pushes=tensor(get(lm, "pushes"))),
+        **{k: tensor(get(d, k)) for k in ("bef_pos", "bef_quat", "aft_pos",
+                                          "aft_quat")},
+        edges=fields(pg.EdgeSet, get(d, "edges")),
+        n_loops=tensor(get(d, "n_loops")))
+
+
+def _fill_vector(values, dtype, device):
+    """A short host vector as a device tensor made of fills: a host->device
+    copy would wait for the stream."""
+    return torch.stack([torch.full((), float(v), dtype=dtype, device=device)
+                        for v in values])
+
+
+class LinsMapper:
+    """Host driver for the mapping backend.
+
+    device / dtype: the card and float32 unless given (the CPU tests pass
+    "cpu" and float64).  `map_corner_cap` / `map_surf_cap` size the map
+    hash tables, as in the reference.
+    """
+
+    def __init__(self, cfg: SlamConfig, corner_cap=None, surf_cap=None,
+                 outlier_cap=None, n_window=None, map_corner_cap=None,
+                 map_surf_cap=None, dtype=None, device=None):
+        if not cfg.loop_closure_enabled or cfg.lc_map_mode == "radius":
+            raise NotImplementedError(
+                "LinsMapper: the radius-selected local map "
+                "(loop_closure_enabled=False or lc_map_mode='radius') is "
+                f"{_SLICE3}; use the recent-window map")
+        if cfg.loop_attempts:
+            raise NotImplementedError(
+                "LinsMapper: loop-closure attempts and the pose-graph solve "
+                f"are {_SLICE3}; pass cfg.replace(loop_attempts=False)")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.dtype = resolve_dtype(dtype)
+        self.caps = derive_caps(cfg, corner_cap, surf_cap, outlier_cap)
+        self.n_window = n_window or cfg.surrounding_keyframe_search_num
+        gp = lmn.grid_params(cfg)
+        if map_corner_cap:
+            gp = gp._replace(corner_table=max(1024, map_corner_cap // 4))
+        if map_surf_cap:
+            gp = gp._replace(surf_table=max(2048, map_surf_cap // 4))
+        self.gp = gp
+        self.state = init_mapper(cfg, *self.caps, self.n_window, gp,
+                                 self.dtype, self.device)
+        self._has_map = False
+        self.last_time = -np.inf
+        self.metrics = []
+        self.trajectory = []
+
+    def shard_store_over(self, mesh, axis: str = "seq"):
+        raise NotImplementedError(
+            f"LinsMapper.shard_store_over: the sharded store is {_SLICE3}")
+
+    def warmup(self, cloud_dtype=None, chunk: int | None = None):
+        """Kept for API parity with the reference package, whose warmup
+        compiles its programs ahead of time; the selection kernel is built
+        at its first launch (ops/build.py)."""
+
+    def _step(self, odo_pos, odo_quat, time, corner_xyz, corner_valid,
+              surf_xyz, surf_valid, outl_xyz, outl_valid, imu_rp):
+        c1, c2, c3 = self.caps
+        self.state, t_m, q_m, metrics = _mapping_step_impl(
+            self.state, odo_pos, odo_quat, time, corner_xyz, corner_valid,
+            surf_xyz, surf_valid, outl_xyz, outl_valid, imu_rp, self.cfg,
+            c1, c2, c3, self.n_window, self.gp, self._has_map)
+        self._has_map = True
+        self.metrics.append(metrics)
+        return t_m, q_m
+
+    def process(self, time: float, odo_pos, odo_quat,
+                corner_xyz, corner_valid, surf_xyz, surf_valid,
+                outl_xyz=None, outl_valid=None, imu_rp=None):
+        """Feed one odometry result + its scan clouds (body frame).
+
+        time: host float (cadence gating).  imu_rp: optional (roll, pitch)
+        from the raw IMU at scan time (imu_roll_pitch); NaN or None
+        disables the blend.  Returns (pos, quat) of the refined pose, or
+        None when throttled.
+        """
+        if time - self.last_time < self.cfg.mapping_process_interval:
+            return None
+        self.last_time = time
+        dt, dev = self.dtype, self.device
+        if outl_xyz is None:
+            outl_xyz = torch.zeros((self.cfg.max_outlier, 3), dtype=dt,
+                                   device=dev)
+            outl_valid = torch.zeros(self.cfg.max_outlier, dtype=torch.bool,
+                                     device=dev)
+        rp = _fill_vector([math.nan] * 2 if imu_rp is None else imu_rp, dt,
+                          dev)
+        t_m, q_m = self._step(torch.as_tensor(odo_pos, dtype=dt, device=dev),
+                              torch.as_tensor(odo_quat, dtype=dt, device=dev),
+                              torch.full((), time, dtype=dt, device=dev),
+                              corner_xyz, corner_valid, surf_xyz, surf_valid,
+                              outl_xyz, outl_valid, rp)
+        self.trajectory.append((time, t_m, q_m))
+        return t_m, q_m
+
+    def plan_chunk(self, ts_host):
+        """Host-side cadence gating for a chunk of scan times: which scans
+        get a mapping step.  Advances the same bookkeeping as `process`, so
+        streaming and chunked runs see the same cadence.  Returns the map
+        flags as a host bool array."""
+        mf = np.zeros(len(ts_host), bool)
+        for i, t in enumerate(ts_host):
+            t = float(t)
+            if t - self.last_time >= self.cfg.mapping_process_interval:
+                mf[i] = True
+                self.last_time = t
+        return mf
+
+    def process_chunk(self, ts_host, rns, qbns, clouds, ts_dev, map_flags,
+                      imu_rp_dev=None):
+        """The mapping cadence over a K-scan chunk of odometry outputs:
+        a mapping step on each scan `map_flags` (from plan_chunk) marks,
+        then every scan's fused pose with the correction current at that
+        scan (process -> fuse, the streaming order).  Nothing is read back
+        to the host.  Returns the fused (pos (K,3), quat (K,4)) blocks.
+
+        ts_dev: (K,) scan times on the device; clouds: the odometry's
+        `last_chunk_clouds`; imu_rp_dev: optional (K, 2) roll/pitch.
+        """
+        K = len(ts_host)
+        dt = self.dtype
+        if imu_rp_dev is None:
+            imu_rp_dev = torch.full((K, 2), math.nan, dtype=dt,
+                                    device=self.device)
+        pos, quat = [], []
+        for i, t in enumerate(ts_host):
+            rn, qbn = rns[i].to(dt), qbns[i].to(dt)
+            if map_flags[i]:
+                t_m, q_m = self._step(
+                    rn, qbn, ts_dev[i].to(dt), clouds["cxyz"][i],
+                    clouds["cval"][i], clouds["sxyz"][i], clouds["sval"][i],
+                    clouds["oxyz"][i], clouds["oval"][i], imu_rp_dev[i])
+                self.trajectory.append((float(t), t_m, q_m))
+            p, q = warm_start(self.state, rn, qbn)
+            pos.append(p)
+            quat.append(q)
+        return torch.stack(pos), torch.stack(quat)
+
+    def maybe_close_loop(self, time: float):
+        """The 1 Hz loop-closure attempt.  The constructor refuses loop
+        attempts until the port's slice 3 fills this in, so there is
+        none."""
+        return None
+
+    def final_solve(self):
+        raise NotImplementedError(
+            f"LinsMapper.final_solve: the pose-graph solve is {_SLICE3}")
+
+    def rebuild_local_map(self):
+        """Rebuild the derived local-map caches (voxel maps + eviction
+        deltas) from the keyframe store, e.g. after an external store
+        edit."""
+        fresh = lmn.empty_local_map(self.cfg, self.n_window, *self.caps,
+                                    self.dtype, self.gp, self.device)
+        ids, ok, wslots = lmn.recent_window_ids(self.state.store,
+                                                self.n_window)
+        self.state = self.state._replace(lmap=lmn.rebuild_window(
+            fresh, self.state.store, ids, ok, wslots, self.gp))
+
+    def correction(self):
+        """Latest (bef, aft) odometry->map correction for pose fusion."""
+        return (self.state.bef_pos, self.state.bef_quat,
+                self.state.aft_pos, self.state.aft_quat)
+
+    def load_numpy_state(self, d, last_time: float | None = None):
+        """Take over a mapper state given with numpy leaves
+        (`mapper_state_from_numpy`), e.g. the reference package's; the
+        cadence restarts at `last_time` when given."""
+        self.state = mapper_state_from_numpy(d, self.device, self.dtype)
+        self._has_map = int(self.state.store.count) > 0
+        if last_time is not None:
+            self.last_time = last_time
+        return self

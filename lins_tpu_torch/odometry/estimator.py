@@ -23,12 +23,12 @@ from lins_tpu_torch.frontend.pipeline import (
 from lins_tpu_torch.geom import so3
 from lins_tpu_torch.imu import eskf
 from lins_tpu_torch.imu import preintegration as pre
-from lins_tpu_torch.imu.eskf import tree_where
 from lins_tpu_torch.odometry import association as assoc
 from lins_tpu_torch.odometry import gn_icp, ieskf
 from lins_tpu_torch.ops.label import label_components
 from lins_tpu_torch.utils.device import resolve_device, resolve_dtype
 from lins_tpu_torch.utils.lazy import ChunkMetrics, LazyRows, to_numpy
+from lins_tpu_torch.utils.tree import tree_where
 
 STATUS_INIT = 0
 STATUS_FIRST_SCAN = 1

@@ -21,9 +21,9 @@ import torch
 from lins_tpu_torch.config import SlamConfig
 from lins_tpu_torch.geom import so3
 from lins_tpu_torch.imu import eskf
-from lins_tpu_torch.imu.eskf import tree_where
 from lins_tpu_torch.odometry import association as assoc
 from lins_tpu_torch.utils.device import may_stop
+from lins_tpu_torch.utils.tree import tree_where
 
 
 class IESKFResult(NamedTuple):

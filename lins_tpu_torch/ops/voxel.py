@@ -1,0 +1,111 @@
+"""Fixed-shape voxel hashing and voxel-grid downsampling (port of
+`lins_tpu/ops/voxel.py`; pcl::VoxelGrid equivalent, leaf sizes of
+lidar_mapping_node.cpp:283-291).
+
+Centroid per voxel over a masked point set, all static shapes: a stable
+lexicographic sort by the exact integer voxel coordinates, centroids from
+cumulative-sum differences at run starts, valid centroids compacted to the
+front.
+"""
+from __future__ import annotations
+
+import torch
+
+from lins_tpu_torch.frontend.projection import div_const
+
+_M32 = 0xFFFFFFFF
+IMAX = 2 ** 31 - 1
+IMIN = -2 ** 31
+
+
+def _mul32(h: torch.Tensor, c: int) -> torch.Tensor:
+    """h * c mod 2^32 for int64 tensors holding uint32 values, with no
+    product above 2^49 (no int64 overflow): the high half of `c` only
+    reaches the result through its low 16 bits."""
+    lo, hi = c & 0xFFFF, c >> 16
+    return (h * lo + (((h * hi) & 0xFFFF) << 16)) & _M32
+
+
+def hash3(v: torch.Tensor, seed: int = 0) -> torch.Tensor:
+    """Murmur-style mixed hash of integer voxel coords (..., 3) -> int32,
+    bit-equal to the reference's uint32 arithmetic with wraparound.
+
+    Eager PyTorch has almost no uint32 arithmetic, so the words live in
+    int64 masked to 32 bits after every multiply and shift, and the result
+    is reinterpreted as int32 in two's complement."""
+    x = v.to(torch.int64) & _M32
+    h = _mul32((x[..., 0] + seed) & _M32, 0x9E3779B1)
+    h = _mul32(h ^ x[..., 1], 0x85EBCA77)
+    h = _mul32(h ^ x[..., 2], 0xC2B2AE3D)
+    h = h ^ (h >> 16)
+    h = _mul32(h, 0x7FEB352D)
+    h = h ^ (h >> 15)
+    h = _mul32(h, 0x846CA68B)
+    h = h ^ (h >> 16)
+    return torch.where(h > IMAX, h - 2 ** 32, h).to(torch.int32)
+
+
+def pair_key(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
+    """One int64 key ordering like the int32 pair (hi, lo)
+    lexicographically."""
+    return hi.to(torch.int64) * 2 ** 32 + (lo.to(torch.int64) - IMIN)
+
+
+def lex_order(keys, dim: int = -1) -> torch.Tensor:
+    """Stable lexicographic argsort along `dim` over int64 keys given most
+    significant first: stable sorts from the least significant key up, as
+    the reference's multi-key `lax.sort` orders rows (stably)."""
+    order = None
+    for k in reversed(keys):
+        kk = k if order is None else torch.gather(k, dim, order)
+        o = torch.sort(kk, dim=dim, stable=True).indices
+        order = o if order is None else torch.gather(order, dim, o)
+    return order
+
+
+def reverse_cummin(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """Suffix minimum along `dim` (associative_scan(min, reverse=True))."""
+    return torch.cummin(x.flip(dim), dim).values.flip(dim)
+
+
+def voxel_downsample(xyz: torch.Tensor, mask: torch.Tensor, leaf: float,
+                     cap: int | None = None):
+    """Downsample a masked (N,3) cloud to voxel centroids.
+
+    Voxel identity is the exact integer voxel coordinate triple (three sort
+    keys); no hash ever merges two voxels.  Returns (xyz (cap,3), valid
+    (cap,)) with centroids compacted to the front; cap defaults to N.
+    """
+    N = xyz.shape[0]
+    cap = cap or N
+    dev = xyz.device
+    v = torch.floor(div_const(xyz, leaf)).to(torch.int32)
+    v = torch.where(mask[:, None], v, IMAX)
+    order = lex_order([pair_key(v[:, 0], v[:, 1]), v[:, 2].to(torch.int64)])
+    k = v[order]
+    xs = xyz[order]
+    ms = k[:, 0] != IMAX
+    true1 = torch.ones(1, dtype=torch.bool, device=dev)
+    start = torch.cat([true1, torch.any(k[1:] != k[:-1], dim=1)]) & ms
+    cx = torch.cat([torch.zeros((1, 3), dtype=xs.dtype, device=dev),
+                    torch.cumsum(torch.where(ms[:, None], xs, 0.0), dim=0)])
+    cn = torch.cat([torch.zeros(1, dtype=torch.int32, device=dev),
+                    torch.cumsum(ms.to(torch.int32), dim=0,
+                                 dtype=torch.int32)])
+    nxt = torch.cat([start[1:], true1])
+    pos = torch.where(nxt, torch.arange(1, N + 1, device=dev), N)
+    next_pos = reverse_cummin(pos, 0)
+
+    n_run = cn[next_pos] - cn[:N]
+    cent = (cx[next_pos] - cx[:N]) / torch.clamp(n_run, min=1)[:, None]
+
+    # compact run-start centroids to the front: scatter by cumsum rank into
+    # a buffer one row longer, whose last row takes the dropped rows
+    m = min(N, cap)
+    rank = torch.cumsum(start.to(torch.int64), dim=0) - 1
+    dest = torch.where(start & (rank < m), rank, m)
+    out = torch.zeros((m + 1, 3), dtype=xs.dtype, device=dev)
+    out[dest] = torch.where(start[:, None], cent, 0.0)
+    ok = torch.zeros(m + 1, dtype=torch.bool, device=dev)
+    ok[dest] = start
+    return out[:m], ok[:m]

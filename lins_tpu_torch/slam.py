@@ -1,53 +1,51 @@
-"""SLAM pipeline orchestrator (port of `lins_tpu/slam.py`).
+"""SLAM pipeline orchestrator (port of `lins_tpu/slam.py`): odometry ->
+mapping -> fused output.
 
-This slice of the port runs the odometry half: `LinsSlam(cfg,
-enable_mapping=False)` streams scans through `LinsOdometry` and outputs its
-poses.  The mapping backend, loop closure and the fused output
-(`enable_mapping=True`) are the port's second slice and raise
-NotImplementedError until then.
+The reference's 4-process ROS graph (run_port_exp.launch:17-31) becomes an
+in-process pipeline: LinsOdometry (image_projection + lins_fusion nodes),
+LinsMapper (lidar_mapping node) and the high-rate pose fusion of
+transform_fusion_node.cpp:91-215 (odometry pose composed with the latest
+map correction).  `enable_mapping=False` runs the odometry alone.  The
+mapper runs the recent-window map without loop attempts; loop closure is
+the port's slice 3 (LinsMapper raises NotImplementedError for it).
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from lins_tpu_torch.config import SlamConfig
+from lins_tpu_torch.mapping.mapper import (LinsMapper, imu_roll_pitch,
+                                           warm_start)
 from lins_tpu_torch.odometry.estimator import STATUS_RUNNING, LinsOdometry
 from lins_tpu_torch.utils.lazy import LazyRows, to_numpy
 
-
-def imu_roll_pitch(acc, gravity: float):
-    """Host-side roll/pitch from a raw accelerometer sample (the stand-in
-    for the reference mapping node's AHRS-orientation IMU queue,
-    lidar_mapping_node.cpp:726-735; same math as calculateRPfromGravity).
-    The mapping backend's feed; copied from the reference package's
-    mapping/mapper.py for the second slice."""
-    acc = np.asarray(acc, float)
-    sz = np.sign(acc[2]) or 1.0
-    pitch = -sz * np.arcsin(np.clip(acc[0] / gravity, -1.0, 1.0))
-    roll = sz * np.arcsin(np.clip(acc[1] / gravity, -1.0, 1.0))
-    return np.asarray([roll, pitch])
+__all__ = ["LinsSlam", "imu_roll_pitch", "run_sequence"]
 
 
 class LinsSlam:
-    """End-to-end LINS: feed IMU + scans, read poses.
+    """End-to-end LINS: feed IMU + scans, read fused poses.
 
-    device / dtype: as `LinsOdometry` (the card and float32 unless given).
+    device / dtype: as `LinsOdometry` (the card and float32 unless given);
+    the mapper runs on the same device in the same dtype.  `mapper_kw`
+    (corner_cap, surf_cap, outlier_cap, n_window, map_corner_cap, ...) go
+    to `LinsMapper`.
     """
 
     def __init__(self, cfg: SlamConfig, dtype=None, enable_mapping=True,
-                 device=None):
-        if enable_mapping:
-            raise NotImplementedError(
-                "LinsSlam(enable_mapping=True): the mapping backend, loop "
-                "closure and fused output are the port's slice 2 (mapping); "
-                "pass enable_mapping=False")
+                 device=None, **mapper_kw):
         self.cfg = cfg
         self.odometry = LinsOdometry(cfg, dtype=dtype, device=device)
-        self.trajectory = []   # (t, pos, quat), device tensors or lazy rows
+        self.mapper = (LinsMapper(cfg, dtype=self.odometry.dtype,
+                                  device=self.odometry.device, **mapper_kw)
+                       if enable_mapping else None)
+        self.trajectory = []   # fused (t, pos, quat), tensors or lazy rows
 
     def warmup(self, chunk=None):
-        """Kept for API parity (LinsOdometry.warmup)."""
+        """Kept for API parity (LinsOdometry.warmup, LinsMapper.warmup)."""
         self.odometry.warmup(chunk=chunk)
+        if self.mapper is not None:
+            self.mapper.warmup(chunk=chunk)
 
     def add_imu(self, t, acc, gyr):
         self.odometry.add_imu(t, acc, gyr)
@@ -57,6 +55,21 @@ class LinsSlam:
         if out is None:
             return None
         pos, quat = out
+        if self.mapper is not None:
+            odo, m = self.odometry, self.mapper
+            # the bootstrap scan's pose comes as host arrays
+            pos = torch.as_tensor(pos, dtype=m.dtype, device=m.device)
+            quat = torch.as_tensor(quat, dtype=m.dtype, device=m.device)
+            imu = odo._last_imu
+            rp = (imu_roll_pitch(imu[0], self.cfg.gravity)
+                  if imu is not None else None)
+            self.mapper.process(t, pos, quat, odo.last_corner["xyz"],
+                                odo.last_corner["valid"],
+                                odo.last_surf["xyz"], odo.last_surf["valid"],
+                                odo.last_outlier["xyz"],
+                                odo.last_outlier["valid"], imu_rp=rp)
+            # high-rate fused output (transform_fusion_node)
+            pos, quat = warm_start(self.mapper.state, pos, quat)
         self.trajectory.append((t, pos, quat))
         return pos, quat
 
@@ -70,15 +83,33 @@ class LinsSlam:
                    chunk: int = 24):
         """Offline replay: stream until the odometry is RUNNING, then
         prefetch the remaining scans AND their IMU batches to the device and
-        process `chunk` scans per `LinsOdometry.add_scan_chunk` call, with
-        no host read inside the chunked loop.  Scans past the last full
-        chunk are streamed through `add_scan`.  Odometry equals streaming.
+        process `chunk` scans per `LinsOdometry.add_scan_chunk` call, the
+        mapper following at its cadence on the chunk's outputs
+        (`LinsMapper.process_chunk`), with no host read and no host->device
+        transfer inside the chunked loop.  Scans past the last full chunk
+        are streamed through `add_scan`.  The result equals streaming up to
+        float rounding.
         """
+        jobs, tail = self.stage_replay(data, n_scans, chunk)
+        for job in jobs:
+            self.run_chunk(job)
+        for j in tail:
+            t_scan = float(data["scan_times"][j]) + self.cfg.scan_period
+            self.add_scan(t_scan, data["scans_xyz"][j], data["scans_n"][j])
+        return self
+
+    def stage_replay(self, data: dict, n_scans: int | None = None,
+                     chunk: int = 24, min_streamed: int = 0):
+        """The set-up half of `run_replay`: stream the first scans (until
+        the odometry is RUNNING, and at least `min_streamed`), buffer the
+        rest of the IMU, and stage every full chunk on the device.  Returns
+        (jobs for `run_chunk`, indices of the tail scans to stream)."""
         cfg = self.cfg
+        odo = self.odometry
         n = n_scans or len(data["scans_xyz"])
         imu_i, k = 0, 0
         # 1) stream until RUNNING (bootstrap needs per-scan host logic)
-        while k < n and self.odometry.status != STATUS_RUNNING:
+        while k < n and (k < min_streamed or odo.status != STATUS_RUNNING):
             t_scan = float(data["scan_times"][k]) + cfg.scan_period
             while (imu_i < len(data["imu_times"])
                    and data["imu_times"][imu_i] <= t_scan + 1e-9):
@@ -95,23 +126,60 @@ class LinsSlam:
         ks = list(range(k, n))
         tail = len(ks) % chunk
         scan_ts = [float(data["scan_times"][j]) + cfg.scan_period for j in ks]
-        chunks = self.odometry.prefetch_chunks(
-            scan_ts,
-            [data["scans_xyz"][j] for j in ks],
+        rp_all = self._roll_pitch_at(scan_ts) if self.mapper else None
+        chunks = odo.prefetch_chunks(
+            scan_ts, [data["scans_xyz"][j] for j in ks],
             [data["scans_n"][j] for j in ks], chunk=chunk, with_imu=True)
-        for ts, xyz_k, n_k, imu in chunks:
-            self.odometry.add_scan_chunk(ts, xyz_k, n_k, imu=imu)
-            self._post_chunk(ts)
-        for j in ks[len(ks) - tail:] if tail else []:
-            t_scan = float(data["scan_times"][j]) + cfg.scan_period
-            self.add_scan(t_scan, data["scans_xyz"][j], data["scans_n"][j])
-        return self
+        # stage what the mapper needs up front: cadence flags (host), scan
+        # times and IMU roll/pitch per chunk (device)
+        staged = []
+        for ci, (ts, *_) in enumerate(chunks):
+            if self.mapper is None:
+                staged.append(None)
+                continue
+            mf = self.mapper.plan_chunk(ts)
+            # scan times as float32, as the reference stages them
+            ts_dev = torch.as_tensor(np.asarray(ts, np.float32),
+                                     device=odo.device)
+            rp_dev = torch.as_tensor(rp_all[ci * chunk:(ci + 1) * chunk],
+                                     dtype=odo.dtype, device=odo.device)
+            staged.append((ts_dev, mf, rp_dev))
+        if odo.device.type == "cuda":
+            torch.cuda.synchronize(odo.device)
+        return list(zip(chunks, staged)), ks[len(ks) - tail:] if tail else []
 
-    def _post_chunk(self, ts):
-        """Per-scan poses of one finished chunk, read lazily (one host copy
-        of the whole block when first read)."""
+    def run_chunk(self, job):
+        """One staged chunk of `stage_replay`: odometry, then mapping and
+        the fused poses."""
+        (ts, xyz_k, n_k, imu), staged = job
+        self.odometry.add_scan_chunk(ts, xyz_k, n_k, imu=imu)
+        self._post_chunk(ts, staged)
+
+    def _roll_pitch_at(self, scan_ts):
+        """Raw-IMU roll/pitch (latest sample <= scan end) per scan, from the
+        still-buffered IMU stream; NaN rows where there is none."""
+        odo = self.odometry
+        imu_t = np.asarray(odo._imu_t, float)
+        imu_a = np.stack(odo._imu_a) if odo._imu_a else np.zeros((0, 3))
+        rp_all = np.full((len(scan_ts), 2), np.nan)
+        for i, t in enumerate(scan_ts):
+            j = np.searchsorted(imu_t, t + 1e-9) - 1
+            if j >= 0:
+                rp_all[i] = imu_roll_pitch(imu_a[j], self.cfg.gravity)
+        return rp_all
+
+    def _post_chunk(self, ts, staged=None):
+        """Mapping over one finished chunk + per-scan fused poses, read
+        lazily (one host copy of the whole block when first read)."""
         rns, qbns = self.odometry.last_chunk_poses
-        p_rows, q_rows = LazyRows(rns), LazyRows(qbns)
+        if self.mapper is not None:
+            ts_dev, mf, rp_dev = staged
+            ps, qs = self.mapper.process_chunk(
+                ts, rns, qbns, self.odometry.last_chunk_clouds, ts_dev, mf,
+                imu_rp_dev=rp_dev)
+        else:
+            ps, qs = rns, qbns
+        p_rows, q_rows = LazyRows(ps), LazyRows(qs)
         for i, t in enumerate(ts):
             self.trajectory.append((float(t), p_rows.row(i), q_rows.row(i)))
 

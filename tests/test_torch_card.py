@@ -10,7 +10,7 @@ import pytest
 import torch
 
 from lins_tpu_torch.config import TINY
-from lins_tpu_torch.ops import label
+from lins_tpu_torch.ops import label, select
 
 
 @pytest.fixture
@@ -106,3 +106,89 @@ def test_chunk_has_no_host_sync(cuda_device):
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     assert len(odo.trajectory) == 7
+
+
+def _select_block(device, seed, Q=300, nb=8, cap=64):
+    """A random gathered block with exact ties (duplicates and a 0.25 m
+    lattice), tombstones, an all-invalid row and an invalid query."""
+    rng = np.random.default_rng(seed)
+    q = np.round(rng.uniform(-5, 5, (Q, 3)) * 4) / 4
+    cand = np.round((q[:, None, :, None]
+                     + rng.uniform(-2, 2, (Q, nb, 3, cap))) * 4) / 4
+    cand[:, 1, :, :9] = cand[:, 0, :, :9]
+    cand[:, -1, :, cap // 2:cap // 2 + 3] = 1.0e9
+    ok = rng.random((Q, nb, cap)) < 0.8
+    ok[0] = False
+    qv = rng.random(Q) < 0.9
+    return [torch.as_tensor(a, device=device) for a in
+            (q.astype(np.float32), qv, cand.astype(np.float32), ok)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb,cap,C", [(8, 64, 32), (27, 216, 32), (2, 9, 17)])
+def test_select_kernel_matches_plain(cuda_device, nb, cap, C):
+    args = _select_block(cuda_device, nb, nb=nb, cap=cap)
+    for first_dropped in (True, False):
+        before = select.select_candidates.launches
+        got = select.select_candidates(*args, C, first_dropped=first_dropped)
+        assert select.select_candidates.launches == before + 1
+        want = select.select_candidates_plain(*args, C,
+                                              first_dropped=first_dropped)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_select_kernel_refuses_bad_inputs(cuda_device):
+    q, qv, cand, ok = _select_block(cuda_device, 0, Q=8, nb=2, cap=8)
+    with pytest.raises(TypeError, match="float32"):
+        select.select_candidates(q.double(), qv, cand.double(), ok, 4)
+    with pytest.raises(ValueError, match="C\\+1"):
+        select.select_candidates(q, qv, cand, ok, 16)
+    with pytest.raises(ValueError, match="contiguous"):
+        select.select_candidates(q, qv, cand.transpose(2, 3).contiguous()
+                                 .transpose(2, 3), ok, 4)
+    # a row longer than the 47 KB of shared memory a block gets unasked
+    long_row = torch.zeros((1, 12100), device=cuda_device)
+    with pytest.raises(ValueError, match="shared memory"):
+        select.topk_smallest(long_row, 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Q,B,C", [(128, 256, 8), (1024, 1728, 64)])
+def test_topk_kernel_matches_plain(cuda_device, Q, B, C):
+    rng = np.random.default_rng(Q)
+    d2 = rng.uniform(0, 100, (Q, B)).astype(np.float32)
+    d2[0] = np.inf
+    d2[1, ::2] = 3.0
+    x = torch.as_tensor(d2, device=cuda_device)
+    before = select.topk_smallest.launches
+    got = select.topk_smallest(x, C)
+    assert select.topk_smallest.launches == before + 1
+    assert torch.equal(got, select.topk_smallest_plain(x, C))
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  np.sort(d2, axis=1)[:, :C])
+
+
+@pytest.mark.cuda
+def test_mapping_replay_on_card_matches_cpu(cuda_device):
+    """With mapping, float32 on the card within 5 cm of float64 on the CPU
+    (the reference's cross-backend gate), every selection through K3."""
+    from lins_tpu_torch.slam import LinsSlam
+
+    cfg = TINY.replace(use_pallas=True, use_pallas_select=True,
+                       loop_attempts=False)
+    kw = dict(corner_cap=256, surf_cap=1024, map_corner_cap=4096,
+              map_surf_cap=8192)
+    data = _sequence(cuda_device)
+    before = select.select_candidates.launches
+    plain_before = select.select_candidates_plain.calls
+    card = LinsSlam(cfg, **kw).run_replay(data, chunk=6)
+    assert select.select_candidates.launches > before
+    assert select.select_candidates_plain.calls == plain_before
+    cpu = LinsSlam(cfg, device="cpu", dtype=torch.float64, **kw).run_replay(
+        data, chunk=6)
+    _, pg, _ = card.trajectory_arrays()
+    _, pc, _ = cpu.trajectory_arrays()
+    assert np.isfinite(pg).all()
+    np.testing.assert_allclose(pg, pc, rtol=0, atol=0.05)

@@ -93,9 +93,15 @@ def test_final_filter_state(runs):
             rtol=0, atol=1e-6, err_msg=key)
 
 
-def test_slam_mapping_waits_for_slice_2():
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        LinsSlam(TCFG, device="cpu")
+@pytest.mark.parametrize("change,match", [
+    ({}, "loop-closure attempts"),
+    (dict(loop_closure_enabled=False), "radius"),
+    (dict(lc_map_mode="radius"), "radius")])
+def test_slam_loop_closure_waits_for_slice_3(change, match):
+    """VLP16's defaults fire loop attempts; without loop closure (or with
+    lc_map_mode="radius") the map is radius-selected.  Both are slice 3."""
+    with pytest.raises(NotImplementedError, match=f"{match}.*slice 3"):
+        LinsSlam(TCFG.replace(**change), device="cpu")
 
 
 def test_imu_roll_pitch_matches_reference():
