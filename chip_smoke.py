@@ -10,31 +10,53 @@ Phases, in order; any failure exits non-zero:
   2. build       nvcc of every kernel source, all started together
   3. kernels     each hand-written kernel against its plain PyTorch version
                  on the card, exactly: K1 on random graphs, edge cases and a
-                 real chunk; K3 on random gathered blocks with ties,
-                 tombstones, invalid rows and short rows at the mapping
-                 shapes; K6 on the canary's shapes (and against torch.topk)
+                 real VLP-16 chunk; K2 on random 64x1800 graphs, seam and
+                 wrap cases, empty and full grids, a 64x1024 OS1-64 grid and
+                 a real HDL-64 chunk; K3 on random gathered blocks with
+                 ties, tombstones, invalid rows and short rows at the
+                 mapping shapes and the loop polish's; K6 on the canary's shapes (and against
+                 torch.topk)
   4. odometry    LinsSlam(VLP16, max_points=28800, use_pallas=True,
                  enable_mapping=False).run_replay over a synthetic gentle
                  sequence (6 + 4x32 scans at 1.5 m/s): label launches,
-                 finite poses, odometry ATE <= 0.25 m, no plain-label
-                 fallback; odometry scans/s timed as bench.py times it
-                 (chunks 1-3 after a warm chunk 0), the warm chunk's host
-                 syncs (PyTorch's sync debug mode), peak memory
-  5. mapping     the same with the mapping backend, enable_mapping=True and
-                 use_pallas_select=True, loop_attempts=False: K3 launches
-                 (>= 2 per mapping step), no plain selection, finite fused
-                 poses, fused ATE <= the odometry ATE and <= 0.25 m; SLAM
-                 scans/s as bench.py:bench_slam times it, host syncs, peak
-                 memory; then K3 against its plain version on real gathers
-                 of the final map at the surf and corner shapes, with kernel,
-                 plain and torch.topk times
+                 finite poses, odometry ATE <= 0.25 m, no plain labelling;
+                 in the same run, scans/s timed as bench.py times it
+                 (chunks 1-3 after a warm chunk 0, synchronize fences), the
+                 warm chunk's host syncs (PyTorch's sync debug mode), peak
+                 memory
+  5. mapping     window, no loop attempts: the same with the mapping
+                 backend (use_pallas_select=True, loop_attempts=False) over
+                 the first 6 + 2x32 scans: K3 launches (>= 2 per mapping
+                 step), no plain selection, fused ATE <= the odometry ATE of
+                 the same scans and <= 0.25 m, SLAM scans/s, syncs, peak;
+                 then K3 against its plain version on real gathers of the
+                 final map, with kernel, plain and torch.topk times
+     path V      bench.py's main cell: the same with loop attempts on, over
+                 all 134 scans (no revisit, so no loop is found, but every
+                 attempt's alignment is computed and selected on the card):
+                 fused ATE <= 0.25 m, SLAM scans/s, syncs, peak, K3 launches
+                 inside the attempts
+     path H      HDL-64 (64x1800, max_points=150000, use_pallas=True,
+                 use_pallas_select=True, loop_time_gate=4 s) full SLAM over
+                 107 scans of the synthetic revisiting circuit: K2 on every
+                 chunk and streamed scan and no plain labelling, K3 in the
+                 attempts, at least one loop with fitness < 0.3, edges =
+                 keyframes - 1 + loops, fused ATE <= the JAX package's on the
+                 same sequence + 0.05 m, SLAM scans/s, syncs, peak
   6. profiles    under torch.profiler, after every timing: one streamed
                  RUNNING scan and each of its stages; one mapping step and
-                 each of its stages (device launches, busy time, idle share,
-                 top kernels)
+                 each of its stages; one loop-closure attempt and one
+                 pose-graph solve on path H's final state (device launches,
+                 busy time, idle share, top kernels); then K3 against its
+                 plain version on the loop polish's real gathers there
   7. CPU checks  the first 8 scans again on the CPU in float64: odometry
-                 positions within 1 cm; with mapping, positions within 5 cm
-                 and per-step matches within 10%
+                 positions within 1 cm; with mapping (the window path and
+                 path H), positions within 5 cm and per-step matches within
+                 10%; path H's final state copied to the CPU in float64:
+                 the profiled loop attempt (flags and matched id equal,
+                 fitness within 10%, edge within 1 cm and 0.01 rad), the
+                 profiled solve and LinsMapper.final_solve (keyframe
+                 positions within 1 mm, rotations within 0.001 rad)
 Then one JSON line of kernel numbers, the nvidia-smi line, and as the last
 line {"ok": true, "device": {...}}.  Without a card, or outside the
 repository, it exits non-zero and prints no result.
@@ -54,10 +76,19 @@ import warnings
 import numpy as np
 
 K_CHUNK = 32
-N_CHUNKS = 3          # timed chunks, after one warm chunk
 WARMUP_SCANS = 6
-N_SCANS = WARMUP_SCANS + (N_CHUNKS + 1) * K_CHUNK
+N_SCANS = WARMUP_SCANS + 4 * K_CHUNK          # the gentle VLP-16 sequence
+N_SCANS_WINDOW = WARMUP_SCANS + 2 * K_CHUNK   # the window path's share
 ATE_LIMIT_M = 0.25
+# path H: the revisiting circuit of tests/test_slam_integration.py at HDL-64
+# size, and the JAX package's fused ATE on it (float32 on a CPU, its kernels
+# off: PYTHONPATH=. python tests/test_torch_loop.py H)
+N_SCANS_H = 107
+SEQ_H = dict(kind="loop", speed=2.2, loop_scale=0.32, acc_noise=0.02,
+             gyr_noise=0.002, ba=(0.05, -0.03, 0.02),
+             bw=(0.002, -0.001, 0.0015))
+REF_FUSED_ATE_H_M = 0.04789136468507596
+ATE_MARGIN_H_M = 0.05
 CPU_CHECK_SCANS = 8
 CPU_CHECK_LIMIT_M = 0.01
 # mapping, card float32 vs CPU float64: the reference's own cross-backend
@@ -67,6 +98,13 @@ CPU_CHECK_LIMIT_M = 0.01
 # selection
 MAP_CPU_POS_TOL_M = 0.05
 MAP_CPU_MATCH_TOL = 0.10
+# path H's final state, card float32 vs a CPU float64 copy: one loop
+# attempt (its edge, correction and fitness) and the pose-graph solve
+LOOP_CPU_TOL_M = 0.01
+LOOP_CPU_TOL_RAD = 0.01
+LOOP_FIT_TOL = 0.10
+SOLVE_CPU_TOL_M = 1e-3
+SOLVE_CPU_TOL_RAD = 1e-3
 # H100 SXM published peaks (NVIDIA data sheet): HBM rate, and the float32
 # rate outside the tensor cores, used for the kernels' scalar operations
 HBM_BYTES_PER_S = 3.35e12
@@ -446,6 +484,100 @@ def phase_k1(cfg, data):
                 library_ms=None)
 
 
+def _k2_edge_cases(S):
+    """Tall-grid cases of K2's seam merge, each (name, e_right, e_down,
+    eligible) at 64 x S."""
+    L = 64
+    z = np.zeros((L, S), bool)
+    cases = []
+    el, ed = z.copy(), z.copy()
+    el[:, 5] = True
+    ed[:-1, 5] = True
+    cases.append(("column_through_all_seams", z.copy(), ed, el))
+    el, er, ed = z.copy(), z.copy(), z.copy()
+    el[15, :4] = el[15, -4:] = True
+    er[15, -4:] = er[15, :3] = True          # S-4 .. S-1 -> 0, wrapping
+    el[16:40, S - 4] = True                  # down across two row seams
+    ed[15:39, S - 4] = True
+    cases.append(("wrap_and_row_seams", er, ed, el))
+    cases.append(("empty", z.copy(), z.copy(), z.copy()))
+    full = np.ones((L, S), bool)
+    ed_full = full.copy()
+    ed_full[-1] = False
+    cases.append(("all_eligible", full, ed_full, full.copy()))
+    return cases
+
+
+def phase_k2(cfg_h, data_h):
+    """K2 against its plain version on the card; returns its JSON entry
+    (launches filled in by path H)."""
+    import torch
+
+    from lins_tpu_torch.odometry.estimator import scan_pre_vmap
+    from lins_tpu_torch.ops import label
+
+    log("== 3. kernels: K2 (label_components on 64-row grids)")
+    dev = torch.device("cuda")
+    check(label.route(64, 1800) == "K2" and label.route(64, 1024) == "K2",
+          "64x1800 and 64x1024 grids route to K2")
+    cases = []
+    for seed in range(3):
+        cases.append((f"random_masked_seed{seed}", *_random_graph(
+            np.random.default_rng(seed), (K_CHUNK, 64, 1800), True)))
+    cases.append(("random_unmasked_seed3", *_random_graph(
+        np.random.default_rng(3), (K_CHUNK, 64, 1800), False)))
+    cases.append(("os1_64_random_seed4", *_random_graph(
+        np.random.default_rng(4), (K_CHUNK, 64, 1024), True)))
+    cases += _k2_edge_cases(1800)
+    cases = [(name, *(torch.as_tensor(a, device=dev) for a in arrs))
+             for name, *arrs in cases]
+    # a real chunk of path H: scans 2..33 through frontend_pre
+    xyz_k = torch.as_tensor(data_h["scans_xyz"][2:2 + K_CHUNK], device=dev)
+    n_k = torch.as_tensor(data_h["scans_n"][2:2 + K_CHUNK].astype(np.int32),
+                          device=dev)
+    pre_k = scan_pre_vmap(xyz_k, n_k, cfg_h)
+    real = (pre_k["e_right"], pre_k["e_down"], pre_k["eligible"])
+    cases.append(("real_hdl64_chunk", *real))
+
+    max_err = 0
+    for name, er, ed, el in cases:
+        before = label._label_blocked.launches
+        got = label.label_components(er, ed, el)
+        torch.cuda.synchronize()
+        check(label._label_blocked.launches == before + 1,
+              f"label_components took K2 for {name}")
+        want = label.label_blocked_plain(er, ed, el)
+        err = int((got.long() - want.long()).abs().max())
+        max_err = max(max_err, err)
+        check(torch.equal(got, want),
+              f"K2 == plain on {name} {tuple(el.shape)} "
+              f"({int(el.sum())} eligible cells, "
+              f"{int(torch.unique(want[el.bool()]).numel())} components)")
+    # the blocked plain version against the unblocked one (the exact
+    # fixpoint of label_from_edges) on the real chunk
+    check(torch.equal(label.label_blocked_plain(*real),
+                      label.label_components_plain(*real)),
+          "plain K2 == plain K1 on the real HDL-64 chunk")
+
+    ms = cuda_ms(lambda: label.label_components(*real), 50)
+    plain_ms = cuda_ms(lambda: label.label_blocked_plain(*real), 3)
+    K, L, S = real[2].shape
+    cells = K * L * S
+    # each input byte read once, each int32 label written once (the parent
+    # table is the design's scratch, not the function's); at least one min
+    # per cell and edge direction
+    bytes_moved = 3 * cells + 4 * cells
+    bound_ms, bound_by = bound(bytes_moved, 4 * cells)
+    log(f"  K2 label_components ({K},{L},{S}): kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bytes_moved} B)")
+    return dict(name="label_blocked", route="cuda",
+                source="lins_tpu_torch/csrc/label_blocked.cu",
+                replaces="lins_tpu/ops/pallas_label.py:135",
+                launches=None, max_abs_err=max_err, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=None)
+
+
 def _select_case(seed, Q, nb, cap, quantized=False):
     """A random gathered block (Q, nb, 3, cap) with the mapping path's edge
     cases: duplicate points (exact ties), tombstones at the voxel map's
@@ -467,7 +599,7 @@ def _select_case(seed, Q, nb, cap, quantized=False):
     ok[1:9] = False
     ok[1:9, 0, :7] = True
     qv = rng.random(Q) < 0.95
-    qv[9] = False
+    qv[9 % Q] = False
     return q, qv, cand, ok
 
 
@@ -506,7 +638,10 @@ def phase_k3_synthetic(C):
                                       (1, (512, 27, 216), False),
                                       (2, (4096, 8, 216), True),
                                       (3, (512, 27, 216), True),
-                                      (4, (37, 3, 11), False)):
+                                      (4, (37, 3, 11), False),
+                                      (5, (8192, 27, 64), False),
+                                      (6, (8192, 27, 64), True),
+                                      (7, (8, 27, 64), False)):
         arrs = _select_case(seed, Q, nb, cap, quant)
         args = [torch.as_tensor(a, device=dev) for a in arrs]
         err = max(err, _k3_equal(args, C, f"random block {(Q, nb, 3, cap)}"
@@ -656,43 +791,14 @@ def warm_odometry(cfg, data, n_scans):
     return odo, imu_i
 
 
-def measure_rate(cfg, data, mapping):
-    """Scans/s as bench.py times it (bench_slam with mapping, the odometry
-    loop without): WARMUP_SCANS streamed, the rest staged in chunks of
-    K_CHUNK; a warm chunk 0, then chunks 1..N_CHUNKS each between
-    torch.cuda.synchronize() fences.  The warm chunk runs in PyTorch's sync
-    debug mode, which stays out of the timed chunks.  Returns (scans/s,
-    seconds per timed chunk, host syncs of the warm chunk, their call
-    sites)."""
-    import torch
-
-    from lins_tpu_torch.slam import LinsSlam
-
-    slam = LinsSlam(cfg, enable_mapping=mapping)
-    jobs, _ = slam.stage_replay(data, chunk=K_CHUNK,
-                                min_streamed=WARMUP_SCANS)
-    torch.cuda.synchronize()
-    with count_host_syncs() as sites:
-        slam.run_chunk(jobs[0])
-    torch.cuda.synchronize()
-    chunk_s = []
-    for job in jobs[1:N_CHUNKS + 1]:
-        t0 = time.perf_counter()
-        slam.run_chunk(job)
-        torch.cuda.synchronize()
-        chunk_s.append(time.perf_counter() - t0)
-    return (N_CHUNKS * K_CHUNK / sum(chunk_s), chunk_s, sum(sites.values()),
-            sites)
-
-
 def _reset_counts():
     from lins_tpu_torch.ops import label, select
 
-    for fn in (label.label_components, select.select_candidates,
-               select.topk_smallest):
+    for fn in (label.label_components, label._label_blocked,
+               select.select_candidates, select.topk_smallest):
         fn.launches = 0
-    for fn in (label.label_components_plain, select.select_candidates_plain,
-               select.topk_smallest_plain):
+    for fn in (label.label_components_plain, label.label_blocked_plain,
+               select.select_candidates_plain, select.topk_smallest_plain):
         fn.calls = 0
 
 
@@ -700,91 +806,156 @@ def _counts():
     from lins_tpu_torch.ops import label, select
 
     return dict(label=label.label_components.launches,
+                label_blocked=label._label_blocked.launches,
                 label_plain=label.label_components_plain.calls,
+                label_blocked_plain=label.label_blocked_plain.calls,
                 select=select.select_candidates.launches,
                 select_plain=select.select_candidates_plain.calls,
                 topk=select.topk_smallest.launches)
 
 
-def log_rate(what, rate, chunk_s, syncs, sites):
-    log(f"  {what}: {rate:.3f} scans/s over chunks 1-{N_CHUNKS} "
-        f"({K_CHUNK} scans each; per chunk "
-        + ", ".join(f"{s:.3f}" for s in chunk_s) + " s)")
-    log(f"  host syncs in the warm chunk: {syncs}"
-        + "".join(f"; {n} at {site}" for site, n in sites.most_common(5)))
-
-
-def phase_odometry(cfg, data):
+def replay(slam, data, n_scans=None):
+    """`slam.run_replay(data, n_scans, chunk=K_CHUNK)`, the user's entry
+    point, with its chunks fenced by torch.cuda.synchronize(): chunk 0 (the
+    warm chunk) runs in PyTorch's sync debug mode, chunks 1.. are timed as
+    bench.py times them (bench_slam with mapping, the odometry loop
+    without).  The kernel counts are set to 0 just before the run and read
+    just after; the peak memory is the run's.  Returns a dict: wall s,
+    chunk_s, rate (scans/s over the timed chunks), syncs and sites (chunk
+    0's host syncs by call site), counts, peak_bytes."""
     import torch
 
-    from lins_tpu_torch.slam import LinsSlam
-    from lins_tpu_torch.utils.trajectory import ate
+    inner = slam.run_chunk
+    chunk_s, sites = [], collections.Counter()
 
-    log("== 4. main path: odometry")
+    def run_chunk(job):
+        torch.cuda.synchronize()
+        if not run_chunk.warm_done:
+            run_chunk.warm_done = True
+            with count_host_syncs() as s:
+                inner(job)
+            sites.update(s)
+            torch.cuda.synchronize()
+            return
+        t0 = time.perf_counter()
+        inner(job)
+        torch.cuda.synchronize()
+        chunk_s.append(time.perf_counter() - t0)
+
+    run_chunk.warm_done = False
+    slam.run_chunk = run_chunk
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
     t0 = time.perf_counter()
-    slam = LinsSlam(cfg, enable_mapping=False)
-    slam.run_replay(data, chunk=K_CHUNK)
-    torch.cuda.synchronize()
+    try:
+        slam.run_replay(data, n_scans=n_scans, chunk=K_CHUNK)
+        torch.cuda.synchronize()
+    finally:
+        del slam.run_chunk
     wall = time.perf_counter() - t0
     counts = _counts()
-    ts, ps, qs = slam.trajectory_arrays()
+    check(chunk_s, "at least one timed chunk after the warm one")
+    return dict(wall=wall, chunk_s=chunk_s,
+                rate=len(chunk_s) * K_CHUNK / sum(chunk_s),
+                syncs=sum(sites.values()), sites=sites, counts=counts,
+                peak_bytes=torch.cuda.max_memory_allocated())
+
+
+def log_run(what, slam, r):
+    n = len(slam.trajectory)
+    log(f"  run_replay: {n} poses in {r['wall']:.2f} s; launch counts "
+        f"{r['counts']}")
+    log(f"  {what}: {r['rate']:.3f} scans/s over chunks 1-"
+        f"{len(r['chunk_s'])} ({K_CHUNK} scans each; per chunk "
+        + ", ".join(f"{s:.3f}" for s in r["chunk_s"]) + " s)")
+    log(f"  host syncs in the warm chunk: {r['syncs']}"
+        + "".join(f"; {n} at {site}"
+                  for site, n in r["sites"].most_common(5)))
+    log(f"  peak device memory of the run: {r['peak_bytes'] / 2**20:.1f} MiB")
+
+
+def _mapping_log(slam):
+    metrics = [{k: float(v) for k, v in m.items()}
+               for m in slam.mapper.metrics]
+    log(f"  {len(metrics)} mapping steps "
+        f"({int(sum(m['keyframe_added'] for m in metrics))} keyframes); per "
+        "step: iters " + str([int(m["iters"]) for m in metrics])
+        + "; matches " + str([int(m["n_matches"]) for m in metrics])
+        + "; re-gathers " + str([int(m["n_refresh"]) for m in metrics]))
+    check(not any(m["query_overflow"] for m in metrics),
+          "no query cap dropped points")
+    return metrics
+
+
+def _count_loop_launches(mapper):
+    """Wrap the mapper's loop attempt so that the K3 launches made inside
+    the attempts are counted apart; returns the list they go to."""
+    from lins_tpu_torch.ops import select
+
+    inner = mapper._loop_step
+    per_attempt = []
+
+    def loop_step(time_dev):
+        before = select.select_candidates.launches
+        out = inner(time_dev)
+        per_attempt.append(select.select_candidates.launches - before)
+        return out
+
+    mapper._loop_step = loop_step
+    return per_attempt
+
+
+def _loop_log(mapper):
+    infos = [{k: float(v) for k, v in i.items()} for i in mapper.loop_info]
+    log(f"  {len(infos)} loop attempts: found "
+        + str([int(i["found"]) for i in infos]) + "; accepted "
+        + str([int(i["accepted"]) for i in infos]) + "; applied "
+        + str([int(i["applied"]) for i in infos]) + "; fitness "
+        + str([round(i["fitness"], 4) for i in infos]) + "; corr_t "
+        + str([round(i["corr_t"], 4) for i in infos]))
+    return infos
+
+
+def phase_odometry(cfg, data):
+    from lins_tpu_torch.slam import LinsSlam
+    from lins_tpu_torch.utils.trajectory import ate
+
+    log("== 4. main path: odometry")
+    slam = LinsSlam(cfg, enable_mapping=False)
+    r = replay(slam, data)
+    log_run("odometry", slam, r)
+    counts = r["counts"]
+    _, ps, qs = slam.trajectory_arrays()
     n_chunks = (N_SCANS - 2) // K_CHUNK
-    log(f"  run_replay: {len(ps)} poses in {wall:.2f} s; launch counts "
-        f"{counts}")
     check(len(ps) == N_SCANS - 1, "one pose per scan after the first")
     check(counts["label"] >= n_chunks,
-          f"label kernel launched {counts['label']} times >= {n_chunks} "
-          f"chunks")
-    check(counts["label_plain"] == 0, "no plain-label fallback on the card")
+          f"K1 launched {counts['label']} times >= {n_chunks} chunks")
+    check(counts["label_plain"] == 0 and counts["label_blocked"] == 0,
+          "no plain labelling and no K2 at 16 rows")
     check(bool(np.isfinite(ps).all() and np.isfinite(qs).all()),
           "every pose finite")
     err = ate(ps, data["gt_pos"][1:1 + len(ps)], align=True)
     check(err <= ATE_LIMIT_M,
           f"odometry ATE {err:.4f} m <= {ATE_LIMIT_M} m ({len(ps)} scans)")
-    peak = torch.cuda.max_memory_allocated()
-    # timed before any profiling: once torch.profiler has run, later eager
-    # work in the same process runs slower (PERF.md)
-    rate, chunk_s, syncs, sites = measure_rate(cfg, data, mapping=False)
-    log_rate("odometry", rate, chunk_s, syncs, sites)
-    log(f"  peak device memory of the replay: {peak / 2**20:.1f} MiB")
-    return dict(launches=counts["label"], topk=counts["topk"], ate=err,
-                rate=rate, ps=ps, syncs_per_chunk=syncs, peak_bytes=peak)
+    return dict(r, ate=err, ps=ps)
 
 
-def phase_mapping(cfg, data, odo_ate):
-    import torch
-
+def phase_mapping(cfg, data, odo_ps):
     from lins_tpu_torch.slam import LinsSlam
     from lins_tpu_torch.utils.trajectory import ate
 
     log("== 5. main path: odometry + mapping (recent window, no loop "
         "attempts)")
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    _reset_counts()
-    t0 = time.perf_counter()
     slam = LinsSlam(cfg, enable_mapping=True)
-    slam.run_replay(data, chunk=K_CHUNK)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = _counts()
-    peak = torch.cuda.max_memory_allocated()
-    ts, ps, qs = slam.trajectory_arrays()
-    metrics = [{k: float(v) for k, v in m.items()}
-               for m in slam.mapper.metrics]
-    n_steps = len(metrics)
-    n_gn = n_steps - 1              # every step after the first has a map
-    log(f"  run_replay: {len(ps)} fused poses, {n_steps} mapping steps "
-        f"({int(sum(m['keyframe_added'] for m in metrics))} keyframes) in "
-        f"{wall:.2f} s; launch counts {counts}")
-    log("  per mapping step: iters "
-        + str([int(m["iters"]) for m in metrics]) + "; matches "
-        + str([int(m["n_matches"]) for m in metrics]) + "; re-gathers "
-        + str([int(m["n_refresh"]) for m in metrics]))
-    check(len(ps) == N_SCANS - 1, "one fused pose per scan after the first")
+    r = replay(slam, data, N_SCANS_WINDOW)
+    log_run("SLAM with mapping", slam, r)
+    counts = r["counts"]
+    _, ps, qs = slam.trajectory_arrays()
+    metrics = _mapping_log(slam)
+    n_gn = len(metrics) - 1          # every step after the first has a map
+    check(len(ps) == N_SCANS_WINDOW - 1,
+          "one fused pose per scan after the first")
     check(counts["select"] >= 2 * n_gn,
           f"K3 launched {counts['select']} times >= 2 per mapping step "
           f"against a map ({n_gn} steps; "
@@ -792,23 +963,124 @@ def phase_mapping(cfg, data, odo_ate):
     check(counts["select_plain"] == 0, "no plain selection on the card")
     check(counts["label"] > 0 and counts["label_plain"] == 0,
           f"K1 launched {counts['label']} times, no plain labelling")
-    check(not any(m["query_overflow"] for m in metrics),
-          "no query cap dropped points")
+    check(bool(np.isfinite(ps).all() and np.isfinite(qs).all()),
+          "every fused pose finite")
+    gt = data["gt_pos"][1:1 + len(ps)]
+    err = ate(ps, gt, align=True)
+    odo_err = ate(odo_ps[:len(ps)], gt, align=True)
+    check(err <= odo_err and err <= ATE_LIMIT_M,
+          f"fused ATE {err:.4f} m <= odometry ATE {odo_err:.4f} m of the "
+          f"same scans and <= {ATE_LIMIT_M} m ({len(ps)} scans)")
+    return dict(r, slam=slam, ate=err, ps=ps, metrics=metrics)
+
+
+def phase_path_v(cfg, data):
+    from lins_tpu_torch.slam import LinsSlam
+    from lins_tpu_torch.utils.trajectory import ate
+
+    log("== 5. path V: bench.py's main cell, loop attempts on")
+    slam = LinsSlam(cfg, enable_mapping=True)
+    in_loops = _count_loop_launches(slam.mapper)
+    r = replay(slam, data)
+    log_run("SLAM with loop attempts", slam, r)
+    counts = r["counts"]
+    _, ps, qs = slam.trajectory_arrays()
+    _mapping_log(slam)
+    infos = _loop_log(slam.mapper)
+    log(f"  K3 launches inside the attempts: {in_loops}")
+    check(len(ps) == N_SCANS - 1, "one fused pose per scan after the first")
+    check(len(infos) >= 10, f"{len(infos)} loop attempts at 1 Hz")
+    check(all(n >= 1 for n in in_loops),
+          "K3 launched in every attempt (the polish, computed and selected)")
+    check(counts["select_plain"] == 0 and counts["label_plain"] == 0,
+          "no plain selection or labelling on the card")
     check(bool(np.isfinite(ps).all() and np.isfinite(qs).all()),
           "every fused pose finite")
     err = ate(ps, data["gt_pos"][1:1 + len(ps)], align=True)
-    check(err <= odo_ate and err <= ATE_LIMIT_M,
-          f"fused ATE {err:.4f} m <= odometry ATE {odo_ate:.4f} m and <= "
-          f"{ATE_LIMIT_M} m ({len(ps)} scans)")
-    log(f"  peak device memory of the replay: {peak / 2**20:.1f} MiB")
-    rate, chunk_s, syncs, sites = measure_rate(cfg, data, mapping=True)
-    log_rate("SLAM with mapping", rate, chunk_s, syncs, sites)
-    return dict(slam=slam, launches=counts["select"], topk=counts["topk"],
-                ate=err, rate=rate, ps=ps, metrics=metrics,
-                syncs_per_chunk=syncs, peak_bytes=peak)
+    check(err <= ATE_LIMIT_M,
+          f"fused ATE {err:.4f} m <= {ATE_LIMIT_M} m ({len(ps)} scans)")
+    return dict(r, slam=slam, ate=err, ps=ps)
 
 
-def phase_profiles(cfg, data, map_slam):
+def phase_path_h(cfg, data):
+    from lins_tpu_torch.slam import LinsSlam
+    from lins_tpu_torch.utils.trajectory import ate
+
+    log("== 5. path H: HDL-64 full SLAM on the revisiting circuit")
+    slam = LinsSlam(cfg, enable_mapping=True)
+    in_loops = _count_loop_launches(slam.mapper)
+    r = replay(slam, data)
+    log_run("HDL-64 SLAM with loop closure", slam, r)
+    counts = r["counts"]
+    _, ps, qs = slam.trajectory_arrays()
+    metrics = _mapping_log(slam)
+    infos = _loop_log(slam.mapper)
+    log(f"  K3 launches inside the attempts: {in_loops}")
+    st = slam.mapper.state
+    n_kf, n_loops = int(st.store.count), int(st.n_loops)
+    n_edges = int(st.edges.count)
+    n_chunks = (N_SCANS_H - 2) // K_CHUNK
+    n_tail = N_SCANS_H - 2 - n_chunks * K_CHUNK
+    check(len(ps) == N_SCANS_H - 1, "one fused pose per scan after the first")
+    check(counts["label_blocked"] >= n_chunks + n_tail,
+          f"K2 launched {counts['label_blocked']} times >= {n_chunks} "
+          f"chunks + {n_tail} streamed RUNNING scans")
+    check(counts["label"] == 0 and counts["label_plain"] == 0
+          and counts["label_blocked_plain"] == 0,
+          "no K1 and no plain labelling at 64 rows")
+    check(counts["select"] > 0 and all(n >= 1 for n in in_loops)
+          and counts["select_plain"] == 0,
+          f"K3 launched {counts['select']} times, in every loop attempt, "
+          f"no plain selection")
+    accepted = [i for i in infos if i["accepted"]]
+    check(n_loops >= 1 and len(accepted) == n_loops
+          and all(i["fitness"] < 0.3 for i in accepted),
+          f"{n_loops} loops closed, every accepted fitness < 0.3")
+    check(n_edges == n_kf - 1 + n_loops,
+          f"{n_edges} edges = {n_kf} keyframes - 1 + {n_loops} loops")
+    check(bool(np.isfinite(ps).all() and np.isfinite(qs).all()),
+          "every fused pose finite")
+    err = ate(ps, data["gt_pos"][1:1 + len(ps)], align=True)
+    lim = REF_FUSED_ATE_H_M + ATE_MARGIN_H_M
+    check(err <= lim,
+          f"fused ATE {err:.4f} m <= the JAX package's {REF_FUSED_ATE_H_M:.4f}"
+          f" m + {ATE_MARGIN_H_M} m ({len(ps)} scans)")
+    return dict(r, slam=slam, ate=err, ps=ps, metrics=metrics,
+                n_loops=n_loops, n_kf=n_kf, in_loops=in_loops)
+
+
+def loop_profiles(slam):
+    """One loop-closure attempt and one pose-graph solve on the final state
+    of path H, each under the profiler (nothing is written back).  Returns
+    the two profiles and their outputs: ((new state, info), (pos, quat))."""
+    import torch
+
+    from lins_tpu_torch.graph import pose_graph as pg
+    from lins_tpu_torch.mapping import keyframes as kf
+    from lins_tpu_torch.mapping.mapper import _loop_step_impl
+
+    m = slam.mapper
+    st = m.state
+    t = torch.full((), float(slam.trajectory[-1][0]), dtype=m.dtype,
+                   device=m.device)
+    prof, attempt = profile_call(lambda: _loop_step_impl(
+        st, t, m.cfg, m.submap_cap, m.cloud_cap, 8, m.n_window, m.gp))
+    info = attempt[1]
+    log_profile(f"one loop-closure attempt (found {int(info['found'])}, "
+                f"accepted {int(info['accepted'])})", prof)
+    store = st.store
+    K = store.capacity
+    ev = pg.live_view(st.edges, store.count, K)
+    prior = torch.remainder(torch.clamp(store.count - K, min=0), K)
+    solve, solved = profile_call(lambda: pg.optimize(
+        store.pos, store.quat, kf.live_mask(store), ev, 8, prior_slot=prior,
+        huber_delta=m.cfg.pg_loop_huber))
+    log_profile(f"one pose-graph solve (8 iterations, {K} slots, "
+                f"{int(store.count)} keyframes)", solve)
+    return prof, solve, attempt, solved
+
+
+def phase_profiles(cfg, data, map_slam, h_slam):
     log("== 6. profiles (after every timing)")
     odo, _ = warm_odometry(cfg, data, WARMUP_SCANS - 1)
     k = WARMUP_SCANS - 1
@@ -819,6 +1091,155 @@ def phase_profiles(cfg, data, map_slam):
     stage_breakdown(odo, data["scans_xyz"][WARMUP_SCANS],
                     data["scans_n"][WARMUP_SCANS])
     mapping_stage_breakdown(map_slam)
+    return loop_profiles(h_slam)
+
+
+def _cpu64(tree):
+    """A float64 CPU copy of a state container of card tensors."""
+    import torch
+
+    from lins_tpu_torch.utils.tree import tree_map
+
+    return tree_map(lambda x: x.detach().cpu().to(torch.float64)
+                    if x.is_floating_point() else x.detach().cpu(), tree)
+
+
+def _quat_gap(a, b):
+    """Largest rotation angle in radians between two stacks of quaternions,
+    each normalised: 4 asin(|a - b| / 2) with b's sign nearer a (arccos of
+    the dot product is ill-conditioned at small angles)."""
+    a, b = (np.asarray(x, float) / np.linalg.norm(x, axis=-1, keepdims=True)
+            for x in (a, b))
+    b = np.where(np.sum(a * b, -1, keepdims=True) < 0, -b, b)
+    chord = np.clip(np.linalg.norm(a - b, axis=-1) / 2, 0.0, 1.0)
+    return float(np.max(4 * np.arcsin(chord), initial=0.0))
+
+
+def phase_k3_loop(slam, C):
+    """K3 against its plain version at the shapes the loop attempt gives
+    it, on real gathers: path H's final state, its current keyframe's cloud
+    moved by ICP onto the loop candidate's submap, gathered from the
+    polish's grid (graph/loop_closure.polish_grid), surf queries and the
+    polish's eight invalid corner queries.  Returns the largest difference
+    of kept distances."""
+    import torch
+
+    from lins_tpu_torch.geom import so3
+    from lins_tpu_torch.graph import loop_closure as lc
+    from lins_tpu_torch.ops.grid_nn import gather_neighbourhood
+
+    log("== 6. K3 on the loop polish's real gathers (path H's final state)")
+    m = slam.mapper
+    cfg, store = m.cfg, m.state.store
+    t = torch.full((), float(slam.trajectory[-1][0]), dtype=m.dtype,
+                   device=m.device)
+    cur = torch.clamp(store.count - 1, min=0)
+    idx, found = lc.detect_loop(store, cur, t, cfg)
+    check(bool(found), f"the final keyframe {int(cur)} has a loop candidate "
+          f"({int(idx)})")
+    submap, sub_ok, cloud, cloud_ok = lc.loop_clouds(
+        store, idx, cur, t, cfg, m.submap_cap, m.cloud_cap)
+    R, tt, _ = lc.icp_align(cloud, cloud_ok, submap, sub_ok,
+                            iters=cfg.loop_icp_iters,
+                            max_corr=cfg.loop_icp_max_corr)
+    src = so3.quat_rotate(so3.mat_to_quat(R)[None, :], cloud) + tt[None, :]
+    grid = lc.polish_grid(submap, sub_ok)
+    corner = torch.zeros((8, 3), dtype=m.dtype, device=m.device)
+    err = 0.0
+    for what, q, q_ok in (
+            ("surf", src, cloud_ok),
+            ("corner", corner, torch.zeros(8, dtype=torch.bool,
+                                           device=m.device))):
+        cand, ok, _ = gather_neighbourhood(q, grid)
+        check(tuple(cand.shape) == (q.shape[0], 27, 3, 64),
+              f"the polish's {what} gather is {tuple(cand.shape)}")
+        err = max(err, _k3_equal((q.contiguous(), q_ok.contiguous(), cand,
+                                  ok), C, f"the loop polish's {what} gather "
+                                  f"({int(q_ok.sum())} valid queries)"))
+    return err
+
+
+def phase_loop_cpu_check(slam, attempt, solved):
+    """Path H's final state, card float32 against a CPU float64 copy: the
+    profiled loop attempt, the profiled pose-graph solve, and then
+    LinsMapper.final_solve (solve, pose rewrite, window rebuild) on the
+    card against the same on the CPU."""
+    import torch
+
+    from lins_tpu_torch.graph import pose_graph as pg
+    from lins_tpu_torch.mapping import keyframes as kf
+    from lins_tpu_torch.mapping.mapper import (_final_solve_impl,
+                                               _loop_step_impl)
+
+    log("== 7. CPU cross-check: path H's loop attempt and pose-graph solve")
+    t0 = time.perf_counter()
+    m = slam.mapper
+    cfg, st = m.cfg, m.state
+    cpu = _cpu64(st)
+    t = torch.full((), float(slam.trajectory[-1][0]), dtype=torch.float64)
+    new_c, info_c = _loop_step_impl(cpu, t, cfg, m.submap_cap, m.cloud_cap,
+                                    8, m.n_window, m.gp)
+    new_g, info_g = attempt
+    flags = ("found", "accepted", "applied", "matched")
+    got = {k: int(info_g[k]) for k in flags}
+    want = {k: int(info_c[k]) for k in flags}
+    log(f"  attempt: card {got}, fitness {float(info_g['fitness']):.6f}, "
+        f"corr_t {float(info_g['corr_t']):.6f} m; CPU {want}, fitness "
+        f"{float(info_c['fitness']):.6f}, corr_t "
+        f"{float(info_c['corr_t']):.6f} m")
+    check(got == want and got["found"] == 1,
+          "found, accepted, applied and the matched id equal, a loop found")
+    check(int(new_g.n_loops) == int(new_c.n_loops)
+          and int(new_g.edges.count) == int(new_c.edges.count),
+          f"{int(new_g.n_loops)} loops and {int(new_g.edges.count)} edges "
+          f"after the attempt on both")
+    fit_g, fit_c = float(info_g["fitness"]), float(info_c["fitness"])
+    check(abs(fit_g - fit_c) <= LOOP_FIT_TOL * fit_c,
+          f"fitness {fit_g:.6f} within {LOOP_FIT_TOL:.0%} of {fit_c:.6f}")
+    e = int(new_c.edges.count) - 1
+    dt_m = float(np.abs(new_g.edges.t[e].cpu().numpy()
+                        - new_c.edges.t[e].numpy()).max())
+    dq = _quat_gap(new_g.edges.q[e].cpu().numpy()[None],
+                   new_c.edges.q[e].numpy()[None])
+    dc = abs(float(info_g["corr_t"]) - float(info_c["corr_t"]))
+    check(dt_m <= LOOP_CPU_TOL_M and dc <= LOOP_CPU_TOL_M
+          and dq <= LOOP_CPU_TOL_RAD,
+          f"the attempt's edge: t_rel {dt_m:.6f} m, corr_t {dc:.6f} m <= "
+          f"{LOOP_CPU_TOL_M} m, q_rel {dq:.6f} rad <= {LOOP_CPU_TOL_RAD} rad")
+
+    store = cpu.store
+    K = store.capacity
+    live = kf.live_mask(store).numpy()
+    ev = pg.live_view(cpu.edges, store.count, K)
+    prior = torch.remainder(torch.clamp(store.count - K, min=0), K)
+    pos_c, quat_c = pg.optimize(store.pos, store.quat, kf.live_mask(store),
+                                ev, 8, prior_slot=prior,
+                                huber_delta=cfg.pg_loop_huber)
+    pos_g, quat_g = (x.cpu().double().numpy() for x in solved)
+    pos_c, quat_c = pos_c.numpy()[live], quat_c.numpy()
+    moved = float(np.abs(pos_c - store.pos.numpy()[live]).max())
+    dp = float(np.abs(pos_g[live] - pos_c).max())
+    dq = _quat_gap(quat_g[live], quat_c[live])
+    check(bool(np.isfinite(pos_g[live]).all()) and dp <= SOLVE_CPU_TOL_M
+          and dq <= SOLVE_CPU_TOL_RAD,
+          f"pose-graph solve ({int(live.sum())} keyframes, moved up to "
+          f"{moved:.6f} m): card vs CPU positions {dp:.2e} m <= "
+          f"{SOLVE_CPU_TOL_M} m, rotations {dq:.2e} rad <= "
+          f"{SOLVE_CPU_TOL_RAD} rad")
+
+    m.final_solve()
+    fin_c = _final_solve_impl(cpu, cfg, 8, m.n_window, m.gp)
+    pos_g = m.state.store.pos.cpu().double().numpy()[live]
+    pos_f = fin_c.store.pos.numpy()[live]
+    moved = float(np.abs(pos_f - store.pos.numpy()[live]).max())
+    dp = float(np.abs(pos_g - pos_f).max())
+    check(bool(np.isfinite(pos_g).all()) and moved > 0
+          and dp <= SOLVE_CPU_TOL_M,
+          f"LinsMapper.final_solve kept the solve (moved up to {moved:.6f} "
+          f"m): card vs CPU keyframe positions {dp:.2e} m <= "
+          f"{SOLVE_CPU_TOL_M} m")
+    log(f"  ({time.perf_counter() - t0:.1f} s)")
+    return dp
 
 
 def phase_cpu_check(cfg, data, card_ps):
@@ -842,12 +1263,12 @@ def phase_cpu_check(cfg, data, card_ps):
     return diff
 
 
-def phase_cpu_map_check(cfg, data, card_ps, card_metrics):
+def phase_cpu_map_check(what, cfg, data, card_ps, card_metrics):
     import torch
 
     from lins_tpu_torch.slam import LinsSlam
 
-    log("== 7. CPU cross-check: odometry + mapping")
+    log(f"== 7. CPU cross-check: {what}")
     t0 = time.perf_counter()
     slam = LinsSlam(cfg, enable_mapping=True, device="cpu",
                     dtype=torch.float64)
@@ -873,6 +1294,10 @@ def phase_cpu_map_check(cfg, data, card_ps, card_metrics):
     return diff, rel
 
 
+def _idle(p):
+    return 1 - p["busy_ms"] / p["wall_ms"] if p["launches"] else math.nan
+
+
 def main():
     import torch
 
@@ -880,7 +1305,7 @@ def main():
         print("chip_smoke: no CUDA device; this check runs on the card",
               file=sys.stderr)
         return 2
-    from lins_tpu_torch.config import VLP16
+    from lins_tpu_torch.config import HDL64, VLP16
     from lins_tpu_torch.datasets.synthetic import generate_sequence
 
     t_start = time.perf_counter()
@@ -888,36 +1313,63 @@ def main():
     phase_build()
     cfg = VLP16.replace(max_points=28800, use_pallas=True)
     cfg_map = cfg.replace(use_pallas_select=True, loop_attempts=False)
+    cfg_v = cfg.replace(use_pallas_select=True)
+    cfg_h = HDL64.replace(use_pallas=True, use_pallas_select=True,
+                          loop_time_gate=4.0)
     t0 = time.perf_counter()
     data = generate_sequence(cfg, n_scans=N_SCANS, kind="gentle", speed=1.5)
-    log(f"  (set-up: {N_SCANS} synthetic scans in "
-        f"{time.perf_counter() - t0:.1f} s)")
+    data_h = generate_sequence(cfg_h, n_scans=N_SCANS_H, **SEQ_H)
+    log(f"  (set-up: {N_SCANS} VLP-16 and {N_SCANS_H} HDL-64 synthetic "
+        f"scans in {time.perf_counter() - t0:.1f} s)")
     k1 = phase_k1(cfg, data)
+    k2 = phase_k2(cfg_h, data_h)
     k3_err = phase_k3_synthetic(cfg_map.s2m_cand)
     k6 = phase_k6()
     odo = phase_odometry(cfg, data)
-    mp = phase_mapping(cfg_map, data, odo["ate"])
+    mp = phase_mapping(cfg_map, data, odo["ps"])
     k3 = phase_k3_real(mp["slam"])
     k3["max_abs_err"] = max(k3["max_abs_err"], k3_err)
-    k1["launches"] = odo["launches"]
-    k3["launches"] = mp["launches"]
-    # K6 is the canary's kernel, off both main paths: its count, read after
-    # each run as the others are, must stay 0 until a path calls it
-    k6["launches"] = odo["topk"] + mp["topk"]
-    check(k6["launches"] == 0, f"K6 launched {odo['topk']} times in the "
-          f"odometry run and {mp['topk']} in the mapping run (off the path)")
-    phase_profiles(cfg, data, mp["slam"])
+    pv = phase_path_v(cfg_v, data)
+    ph = phase_path_h(cfg_h, data_h)
+    runs = dict(odometry=odo, window=mp, V=pv, H=ph)
+    # each kernel's launches: the sum of its counts over the main-path runs,
+    # each read just after its own run
+    k1["launches"] = sum(r["counts"]["label"] for r in runs.values())
+    k2["launches"] = sum(r["counts"]["label_blocked"] for r in runs.values())
+    k3["launches"] = sum(r["counts"]["select"] for r in runs.values())
+    # K6 is the canary's kernel, off every main path: its count must stay 0
+    # until a path calls it
+    k6["launches"] = sum(r["counts"]["topk"] for r in runs.values())
+    log("  launches per run: " + "; ".join(
+        f"{name} K1 {r['counts']['label']} K2 {r['counts']['label_blocked']}"
+        f" K3 {r['counts']['select']} K6 {r['counts']['topk']}"
+        for name, r in runs.items()))
+    check(k6["launches"] == 0, "K6 launched 0 times on the main paths")
+    attempt, solve, attempt_out, solved = phase_profiles(
+        cfg, data, mp["slam"], ph["slam"])
+    k3["max_abs_err"] = max(k3["max_abs_err"],
+                            phase_k3_loop(ph["slam"], cfg_h.s2m_cand))
     diff = phase_cpu_check(cfg, data, odo["ps"])
-    mdiff, mrel = phase_cpu_map_check(cfg_map, data, mp["ps"],
-                                      mp["metrics"])
-    log(f"  summary on {smi}: odometry {odo['rate']:.3f} scans/s, ATE "
-        f"{odo['ate']:.4f} m, card-vs-CPU {diff:.6f} m; with mapping "
-        f"{mp['rate']:.3f} scans/s, fused ATE {mp['ate']:.4f} m, card-vs-CPU "
-        f"{mdiff:.6f} m and matches {mrel:.4f}; host syncs per chunk "
-        f"{odo['syncs_per_chunk']} / {mp['syncs_per_chunk']}; peak "
-        f"{odo['peak_bytes'] / 2**20:.1f} / {mp['peak_bytes'] / 2**20:.1f} "
-        f"MiB; script {time.perf_counter() - t_start:.1f} s")
-    kernels = [k1, k3, k6]
+    mdiff, mrel = phase_cpu_map_check("the window path", cfg_map, data,
+                                      mp["ps"], mp["metrics"])
+    hdiff, hrel = phase_cpu_map_check("path H (HDL-64)", cfg_h, data_h,
+                                      ph["ps"], ph["metrics"])
+    sdiff = phase_loop_cpu_check(ph["slam"], attempt_out, solved)
+    log(f"  summary on {smi}:")
+    for name, r in runs.items():
+        log(f"    {name}: {r['rate']:.3f} scans/s, ATE {r['ate']:.4f} m, "
+            f"host syncs in the warm chunk {r['syncs']}, peak "
+            f"{r['peak_bytes'] / 2**20:.1f} MiB")
+    log(f"    card-vs-CPU: odometry {diff:.6f} m; window {mdiff:.6f} m, "
+        f"matches {mrel:.4f}; H {hdiff:.6f} m, matches {hrel:.4f}; H's "
+        f"final solve {sdiff:.2e} m")
+    log(f"    H: {ph['n_loops']} loops, {ph['n_kf']} keyframes; one loop "
+        f"attempt {attempt['launches']} launches, busy "
+        f"{attempt['busy_ms']:.3f} ms, idle share {_idle(attempt):.4f}; one "
+        f"solve {solve['launches']} launches, busy {solve['busy_ms']:.3f} ms,"
+        f" idle share {_idle(solve):.4f}")
+    log(f"    script {time.perf_counter() - t_start:.1f} s")
+    kernels = [k1, k2, k3, k6]
     for k in kernels:
         for key in ("ms", "plain_ms", "bound_ms"):
             if not math.isfinite(k[key]):

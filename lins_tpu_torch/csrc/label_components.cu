@@ -9,20 +9,10 @@
 //   output  labels  (K, L, S) int32  smallest flat id i*S+j of the cell's
 //           4-connected component; 2^30 for an ineligible cell.
 //
-// Design.  One block per scan.  The scan's labels (L*S int32, 115,200 B at
-// 16x1800) live in dynamic shared memory with one flag byte per cell
-// (e_right | e_down << 1 | eligible << 2) beside them, 144,000 B in all, so
-// the iteration never touches device memory.  Each round:
-//   1. hook: every eligible cell takes the least label over its connected
-//      neighbours; when that is below its own label l it lowers both itself
-//      and the cell l (its current representative) with atomicMin, so a
-//      smaller label entering a converged region reaches every member
-//      through that representative;
-//   2. jump: every eligible cell follows lab[lab[c]] down to a root.
-// Rounds repeat until one changes nothing (__syncthreads_or).  Invariants:
-// lab[c] <= c, and lab[c] is always the id of a member of c's component;
-// at the fixpoint connected cells agree, so every label is the component's
-// least id — the fixpoint of label_from_edges, exactly.
+// Design.  One block per scan runs the shared-memory body of label_grid.cuh
+// (hook + pointer-jump rounds to the fixpoint) on the whole scan: 144,000 B
+// of labels and flags at 16x1800.  Grids larger than a block's shared memory
+// are K2's (label_blocked.cu).
 //
 // Bound.  Each input byte is read once and each label written once:
 // 3*K*L*S + 4*K*L*S bytes (6.45 MB at K=32, 16x1800), 1.9 us at 3.35 TB/s.
@@ -30,13 +20,13 @@
 // latency-bound on one SM per scan; 32 blocks use 32 of 132 SMs.  Filling
 // the card (several blocks per scan, or a cluster per scan) is later work.
 
-#include <cstdint>
 #include <cuda_runtime.h>
+
+#include "label_grid.cuh"
 
 namespace {
 
-constexpr int kBig = 1 << 30;
-constexpr int kThreads = 1024;
+using lins_label::kThreads;
 
 __global__ void __launch_bounds__(kThreads)
 label_kernel(const uint8_t* __restrict__ e_right,
@@ -44,84 +34,21 @@ label_kernel(const uint8_t* __restrict__ e_right,
              const uint8_t* __restrict__ eligible,
              int32_t* __restrict__ out, int L, int S) {
   extern __shared__ int32_t smem[];
-  const int n = L * S;
-  int32_t* lab = smem;                                    // n labels
-  uint8_t* flags = reinterpret_cast<uint8_t*>(smem + n);  // n flag bytes
-  const size_t base = static_cast<size_t>(blockIdx.x) * n;
-
-  for (int c = threadIdx.x; c < n; c += blockDim.x) {
-    const uint8_t el = eligible[base + c] != 0;
-    flags[c] = (e_right[base + c] != 0) | ((e_down[base + c] != 0) << 1)
-               | (el << 2);
-    lab[c] = el ? c : kBig;
-  }
-  __syncthreads();
-
-  volatile int32_t* vlab = lab;
-  int changed = 1;
-  while (changed) {
-    int local = 0;
-    // 1. hook
-    for (int c = threadIdx.x; c < n; c += blockDim.x) {
-      const uint8_t f = flags[c];
-      if (!(f & 4)) continue;
-      const int i = c / S;
-      const int j = c - i * S;
-      const int l = vlab[c];
-      int m = l;
-      if (f & 1) {                                         // right, wraps
-        const int r = (j + 1 == S) ? c + 1 - S : c + 1;
-        m = min(m, vlab[r]);
-      }
-      {                                                    // left, wraps
-        const int lf = (j == 0) ? c + S - 1 : c - 1;
-        if (flags[lf] & 1) m = min(m, vlab[lf]);
-      }
-      if ((f & 2) && i + 1 < L) m = min(m, vlab[c + S]);   // down
-      if (i > 0 && (flags[c - S] & 2)) m = min(m, vlab[c - S]);  // up
-      if (m < l) {
-        atomicMin(&lab[l], m);
-        atomicMin(&lab[c], m);
-        local = 1;
-      }
-    }
-    __syncthreads();
-    // 2. jump to the root
-    for (int c = threadIdx.x; c < n; c += blockDim.x) {
-      if (!(flags[c] & 4)) continue;
-      const int l = vlab[c];
-      int r = l;
-      int nxt = vlab[r];
-      while (nxt < r) {
-        r = nxt;
-        nxt = vlab[r];
-      }
-      if (r < l) {
-        atomicMin(&lab[c], r);
-        local = 1;
-      }
-    }
-    changed = __syncthreads_or(local);
-  }
-
-  for (int c = threadIdx.x; c < n; c += blockDim.x) out[base + c] = lab[c];
+  const size_t base = static_cast<size_t>(blockIdx.x) * L * S;
+  lins_label::label_grid(e_right + base, e_down + base, eligible + base,
+                         out + base, L, S, 0, smem);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Dynamic shared memory one block needs for an L x S grid.
-int label_components_smem_bytes(int L, int S) {
-  return L * S * (static_cast<int>(sizeof(int32_t)) + 1);
-}
-
 // Launch on `stream` (a cudaStream_t passed as a pointer); returns the
 // cudaError_t of the launch (0 on success).  Does not synchronise.
 int label_components_launch(const void* e_right, const void* e_down,
                             const void* eligible, void* out, int K, int L,
                             int S, void* stream) {
-  const int smem = label_components_smem_bytes(L, S);
+  const int smem = lins_label::grid_smem_bytes(L, S);
   cudaError_t err = cudaFuncSetAttribute(
       label_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);

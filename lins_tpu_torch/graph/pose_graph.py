@@ -1,11 +1,20 @@
-"""Pose-graph factors (port of the edge part of
-`lins_tpu/graph/pose_graph.py`; reference C22, lidar_mapping_node.cpp:
-1654-1795).
+"""SE(3) pose-graph optimisation (port of `lins_tpu/graph/pose_graph.py`;
+reference C22, lidar_mapping_node.cpp:1654-1795 — PriorFactor /
+BetweenFactor / iSAM2).
 
-The mapping step writes one odometry between-factor per keyframe
-(saveKeyFramesAndFactor, :1693-1703) into a fixed-capacity ring of edges.
-The solve over them (`live_view`, `optimize`, `optimize_cg`) belongs to
-loop closure, the port's slice 3.
+iSAM2 becomes a batched Gauss-Newton re-solve over the whole graph, as in
+the reference package.  Per iteration:
+  * per-edge 6-dim residuals r = [log(q_m⁻¹ q_i⁻¹ q_j), R_iᵀ(p_j-p_i) - t_m]
+  * per-edge 6x12 Jacobians by forward-mode autodiff
+    (`torch.func.vmap(torch.func.jacfwd(...))`, the reference's
+    `vmap(jacfwd)`), through the port's `so3` and its small-angle branches;
+  * scatter-add of the four 6x6 blocks into the dense (6K, 6K) normal matrix;
+  * one Cholesky solve (`cholesky_ex` + two triangular solves: nothing is
+    read back to the host, a failed factorisation becomes a non-finite step,
+    as JAX's Cholesky returns NaN) and a boxplus update.
+A failed step is a no-op iteration.  Edges and nodes live in fixed-capacity
+masked arrays.  The matrix-free sparse solve (`optimize_cg`, which the
+reference takes above 1024 keyframes) is the port's slice 4.
 """
 from __future__ import annotations
 
@@ -15,6 +24,8 @@ import torch
 
 from lins_tpu_torch.geom import so3
 from lins_tpu_torch.mapping.keyframes import put_row
+
+SLICE4 = "the port's slice 4 (radius map, sparse solve, sharded store)"
 
 
 class EdgeSet(NamedTuple):
@@ -54,8 +65,174 @@ def add_edge(e: EdgeSet, i, j, t, q, w_rot, w_pos) -> EdgeSet:
         count=e.count + 1)
 
 
+def live_view(edges: EdgeSet, count, K: int) -> EdgeSet:
+    """Absolute keyframe-id endpoints as ring slots of a K-capacity store,
+    with edges that touch an evicted keyframe (id < count - K) retired."""
+    oldest = torch.clamp(count - K, min=0)
+    ok = (edges.valid & (edges.i >= oldest) & (edges.j >= oldest)
+          & (edges.i < count) & (edges.j < count))
+    return edges._replace(i=torch.remainder(edges.i, K).to(torch.int32),
+                          j=torch.remainder(edges.j, K).to(torch.int32),
+                          valid=ok)
+
+
 def relative_pose(p_i, q_i, p_j, q_j):
     """(t, q) of node j expressed in node i's frame."""
     q_rel = so3.quat_normalize(so3.quat_mul(so3.quat_inv(q_i), q_j))
     t_rel = so3.quat_rotate_inv(q_i, p_j - p_i)
     return t_rel, q_rel
+
+
+def _edge_residual(xi_i, xi_j, p_i, q_i, p_j, q_j, t_m, q_m):
+    """6-dim residual at tangent perturbations (xi = [dtheta(3), dp(3)])."""
+    qi = so3.quat_mul(q_i, so3.exp_axis(xi_i[..., 0:3]))
+    qj = so3.quat_mul(q_j, so3.exp_axis(xi_j[..., 0:3]))
+    pi = p_i + xi_i[..., 3:6]
+    pj = p_j + xi_j[..., 3:6]
+    r_rot = so3.log_quat(so3.quat_mul(so3.quat_inv(q_m),
+                                      so3.quat_mul(so3.quat_inv(qi), qj)))
+    r_pos = so3.quat_rotate_inv(qi, pj - pi) - t_m
+    return torch.cat([r_rot, r_pos], dim=-1)
+
+
+def _edge_blocks(p_i, q_i, p_j, q_j, t_m, q_m, w_rot, w_pos):
+    """Per edge (batched over the leading axis): residual (E,6), exact
+    Jacobians d r / d xi_i and d r / d xi_j (E,6,6) at xi = 0, and the
+    information weights (E,6).
+
+    At xi = 0 the perturbation's `exp_axis` sits on its small-angle branch
+    (the identity quaternion), whose tangent is zero, so the rotation
+    columns come out zero in both packages; the branch not taken has a
+    non-finite tangent there, which `torch.where` does not pass on."""
+    z = torch.zeros(6, dtype=p_i.dtype, device=p_i.device)
+
+    def one(p_i, q_i, p_j, q_j, t_m, q_m):
+        def f(xi_i, xi_j):
+            r = _edge_residual(xi_i, xi_j, p_i, q_i, p_j, q_j, t_m, q_m)
+            return r, r
+        (Ji, Jj), r = torch.func.jacfwd(f, argnums=(0, 1), has_aux=True)(z, z)
+        return r, Ji, Jj
+
+    r, Ji, Jj = torch.func.vmap(one)(p_i, q_i, p_j, q_j, t_m, q_m)
+    w = torch.cat([w_rot[:, None].expand(-1, 3), w_pos[:, None].expand(-1, 3)],
+                  dim=1)
+    return r, Ji, Jj, w
+
+
+def _active_mask(active, K: int, device):
+    """A node count (0-dim) or a (K,) bool live mask, as a (K,) mask."""
+    active = torch.as_tensor(active, device=device)
+    if active.dim() == 0:
+        return torch.arange(K, device=device) < active
+    return active
+
+
+def _robust_scale(r, w, edges: EdgeSet, huber_delta: float, K: int):
+    """Per-edge IRLS Huber factor min(1, delta/||r||_W) on LOOP edges
+    (odometry between-factors join consecutive ids, so modulo-K adjacency
+    classifies live_view's ring slots, whose wrap edge is (K-1, 0))."""
+    if huber_delta <= 0.0:
+        return torch.ones(r.shape[0], dtype=r.dtype, device=r.device)
+    rnorm = torch.sqrt(torch.clamp(torch.sum(w * r * r, dim=1), min=1e-30))
+    is_loop = torch.remainder(edges.j - edges.i, K) != 1
+    scale = torch.clamp(huber_delta / rnorm, max=1.0)
+    return torch.where(is_loop, scale, 1.0).to(r.dtype)
+
+
+def _block_index(a, b, K: int):
+    """Flat indices into a (6K, 6K) matrix of the 6x6 blocks (a[e], b[e])."""
+    r6 = torch.arange(6, device=a.device)
+    rows = a.long()[:, None, None] * 6 + r6[None, :, None]
+    cols = b.long()[:, None, None] * 6 + r6[None, None, :]
+    return rows * (6 * K) + cols
+
+
+def build_normal_system(pos, quat, edges: EdgeSet, huber_delta: float = 0.0):
+    """Dense block normal equations (H (K,6,K,6), g (K,6)) of an edge set;
+    huber_delta > 0 IRLS-downweights loop edges (_robust_scale).  The block
+    scatter-adds accumulate in no fixed order on the card."""
+    K = pos.shape[0]
+    ii, jj = edges.i.long(), edges.j.long()
+    r, Ji, Jj, w = _edge_blocks(pos[ii], quat[ii], pos[jj], quat[jj],
+                                edges.t, edges.q, edges.w_rot, edges.w_pos)
+    w = w * _robust_scale(r, w, edges, huber_delta, K)[:, None]
+    ok = edges.valid[:, None]
+    rw = torch.where(ok, r * w, 0.0)
+    Jiw = torch.where(ok[..., None], Ji * w[:, :, None], 0.0)
+    Jjw = torch.where(ok[..., None], Jj * w[:, :, None], 0.0)
+    Ji_m = torch.where(ok[..., None], Ji, 0.0)
+    Jj_m = torch.where(ok[..., None], Jj, 0.0)
+
+    blocks = torch.stack([torch.einsum("eri,erj->eij", Jiw, Ji_m),
+                          torch.einsum("eri,erj->eij", Jiw, Jj_m),
+                          torch.einsum("eri,erj->eij", Jjw, Ji_m),
+                          torch.einsum("eri,erj->eij", Jjw, Jj_m)])
+    idx = torch.stack([_block_index(edges.i, edges.i, K),
+                       _block_index(edges.i, edges.j, K),
+                       _block_index(edges.j, edges.i, K),
+                       _block_index(edges.j, edges.j, K)])
+    H = torch.zeros(36 * K * K, dtype=pos.dtype, device=pos.device)
+    H.index_add_(0, idx.reshape(-1), blocks.reshape(-1))
+    g = torch.zeros((K, 6), dtype=pos.dtype, device=pos.device)
+    g.index_add_(0, ii, torch.einsum("eri,er->ei", Ji_m, rw))
+    g.index_add_(0, jj, torch.einsum("eri,er->ei", Jj_m, rw))
+    return H.reshape(K, 6, K, 6), g
+
+
+def solve_and_clamp(H, g, active, prior_w, damping, prior_slot=0):
+    """Add the gauge prior and damping, Cholesky-solve, zero the inactive
+    nodes' updates.  A factorisation that fails (info != 0) gives a
+    non-finite step."""
+    K = g.shape[0]
+    dtype, dev = g.dtype, g.device
+    node_ids = torch.arange(K, device=dev)
+    pw = torch.full((), prior_w, dtype=dtype, device=dev)
+    diag_w = torch.where(node_ids == prior_slot, pw,
+                         torch.where(active, damping, pw))
+    Hd = H.reshape(6 * K, 6 * K) + torch.diag(
+        torch.repeat_interleave(diag_w, 6))
+    L, info = torch.linalg.cholesky_ex(Hd)
+    y = torch.linalg.solve_triangular(L, g.reshape(-1, 1), upper=False)
+    x = torch.linalg.solve_triangular(L.mT, y, upper=True)
+    dx = torch.where(info == 0, -x.reshape(K, 6), torch.nan)
+    return torch.where(active[:, None], dx, 0.0)
+
+
+def optimize(pos, quat, active, edges: EdgeSet, iters: int = 8,
+             prior_w: float = 1e6, damping: float = 1e-6, prior_slot=0,
+             huber_delta: float = 0.0):
+    """Batched Gauss-Newton over the pose graph: `iters` fixed iterations.
+    pos (K,3), quat (K,4); `active` is a node count or a (K,) live mask;
+    `prior_slot` carries the gauge prior (the oldest live node once node 0
+    has been evicted).  A step with any non-finite entry is a no-op (the
+    reference's NaN scrub, lidar_mapping_node.cpp:738-750).  Returns
+    (pos, quat)."""
+    active = _active_mask(active, pos.shape[0], pos.device)
+    for _ in range(iters):
+        H, g = build_normal_system(pos, quat, edges, huber_delta)
+        dx = solve_and_clamp(H, g, active, prior_w, damping, prior_slot)
+        dx = torch.where(torch.all(torch.isfinite(dx)), dx, 0.0)
+        quat = so3.quat_normalize(so3.quat_mul(quat,
+                                               so3.exp_axis(dx[:, 0:3])))
+        pos = pos + dx[:, 3:6]
+    return pos, quat
+
+
+def optimize_cg(pos, quat, active, edges: EdgeSet, iters: int = 8,
+                cg_iters: int = 64, prior_w: float = 1e6,
+                damping: float = 1e-3, prior_slot=0, huber_delta: float = 0.0):
+    """The reference's matrix-free block-Jacobi PCG solve, which its mapper
+    takes above 1024 keyframes."""
+    raise NotImplementedError(f"pose_graph.optimize_cg: the sparse solve is "
+                              f"{SLICE4}")
+
+
+def graph_cost(pos, quat, edges: EdgeSet):
+    """Weighted SSE of all edge residuals (tests, telemetry)."""
+    ii, jj = edges.i.long(), edges.j.long()
+    z = torch.zeros_like(edges.t[:, :1]).expand(-1, 6)
+    r = _edge_residual(z, z, pos[ii], quat[ii], pos[jj], quat[jj], edges.t,
+                       edges.q)
+    w = torch.cat([edges.w_rot[:, None].expand(-1, 3),
+                   edges.w_pos[:, None].expand(-1, 3)], dim=1)
+    return torch.sum(torch.where(edges.valid[:, None], w * r * r, 0.0))

@@ -9,7 +9,7 @@ the ring slot it evicts is subtracted from its stored `VoxDelta`, and a
 full compaction rebuild runs every `map_rebuild_interval` keyframes or on
 cell overflow.  The window is the last W keyframes (the reference's
 loop-closure-mode map, :1205-1235), ring row = keyframe id mod W.  The
-radius-selected window (`select_radius`) is the port's slice 3.
+radius-selected window (`select_radius`) is the port's slice 4.
 """
 from __future__ import annotations
 

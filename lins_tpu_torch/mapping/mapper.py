@@ -20,11 +20,21 @@ mapping step ever).  Branches that depend on device values — the keyframe
 gate and the compaction rebuild — are computed and selected on the card
 (utils/tree.cond), so a chunk reads nothing back to the host.
 
-This slice runs the reference's window-without-loops configuration
-(`loop_closure_enabled=True, loop_attempts=False, lc_map_mode="recent"`).
-Loop attempts, the pose-graph solve, `final_solve`, the radius-selected map
-and the sharded store are the port's slice 3 and raise
-NotImplementedError.
+At the 1 Hz loop cadence (`loop_attempts`) a loop-closure attempt follows
+the mapping step (`_loop_step_impl`): detection, ICP and polish against the
+old pass (graph/loop_closure.py); an accepted edge enters the pose graph,
+and when its implied correction is large enough the graph is re-solved
+(graph/pose_graph.py), every keyframe pose rewritten and the window map
+rebuilt (performLoopClosure + correctPoses, :1114-1186, 1767-1795).  On
+the card the attempt's branches (align or skip, solve or not, the
+whole-solve guard) are computed and selected as well; which scans attempt
+a loop is host cadence.  `final_solve` re-solves over every edge at the
+end of a run.
+
+The recent-window map is ported (`loop_closure_enabled=True`,
+`lc_map_mode="recent"`).  The radius-selected map, the sparse solve that
+the reference takes above 1024 keyframes and the sharded store are the
+port's slice 4 and raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -36,6 +46,7 @@ import torch
 
 from lins_tpu_torch.config import SlamConfig
 from lins_tpu_torch.geom import so3
+from lins_tpu_torch.graph import loop_closure as lc
 from lins_tpu_torch.graph import pose_graph as pg
 from lins_tpu_torch.mapping import keyframes as kf
 from lins_tpu_torch.mapping import local_map as lmn
@@ -44,9 +55,7 @@ from lins_tpu_torch.mapping.scan2map import scan_to_map_grids
 from lins_tpu_torch.ops.voxel import voxel_downsample
 from lins_tpu_torch.ops.voxel_map import VoxDelta, VoxelMap
 from lins_tpu_torch.utils.device import resolve_device, resolve_dtype
-from lins_tpu_torch.utils.tree import cond
-
-_SLICE3 = "the port's slice 3 (graph backend)"
+from lins_tpu_torch.utils.tree import cond, tree_where
 
 
 class MapperState(NamedTuple):
@@ -232,6 +241,83 @@ def _mapping_step_impl(state: MapperState, odo_pos, odo_quat, time,
     return new_state, t_m, q_m, metrics
 
 
+def _solve_and_rewrite(state: MapperState, edges: pg.EdgeSet,
+                       cfg: SlamConfig, opt_iters: int, n_window: int,
+                       gp: lmn.GridParams):
+    """Pose-graph solve over the live edges, every keyframe pose rewritten,
+    the window map rebuilt from the corrected poses (the reference leaves
+    its deque clouds stale here) and the correction moved to the current
+    keyframe.  Returns (new state, whether every live pose is finite)."""
+    store = state.store
+    K = store.capacity
+    live = kf.live_mask(store)
+    ev = pg.live_view(edges, store.count, K)
+    # gauge prior on the oldest live keyframe (node 0 may be evicted)
+    prior_slot = torch.remainder(torch.clamp(store.count - K, min=0), K)
+    solve = pg.optimize_cg if K > 1024 else pg.optimize
+    pos, quat = solve(store.pos, store.quat, live, ev, opt_iters,
+                      prior_slot=prior_slot, huber_delta=cfg.pg_loop_huber)
+    store2 = kf.set_poses(store, pos, quat)
+    ids, ok, wslots = lmn.recent_window_ids(store2, n_window)
+    lmap = lmn.rebuild_window(state.lmap, store2, ids, ok, wslots, gp)
+    cur_slot = torch.remainder(torch.clamp(store.count - 1, min=0), K)
+    new = state._replace(store=store2, lmap=lmap, edges=edges,
+                         aft_pos=take_row(pos, cur_slot),
+                         aft_quat=take_row(quat, cur_slot))
+    live2 = live[:, None]
+    good = (torch.all(torch.where(live2, torch.isfinite(pos), True))
+            & torch.all(torch.where(live2, torch.isfinite(quat), True)))
+    return new, good
+
+
+def _loop_step_impl(state: MapperState, time, cfg: SlamConfig,
+                    submap_cap: int, cloud_cap: int, opt_iters: int,
+                    n_window: int, gp: lmn.GridParams):
+    """One loop-closure attempt and, on accept, the pose-graph re-solve,
+    keyframe pose rewrite and window rebuild (performLoopClosure +
+    correctPoses, lidar_mapping_node.cpp:1114-1186, 1767-1795).  Returns
+    (new state, info dict of device scalars)."""
+    store = state.store
+    cur = torch.clamp(store.count - 1, min=0)          # absolute id
+    idx, found, accepted, t_rel, q_rel, fitness, corr_t = lc.try_close_loop(
+        store, cur, time, cfg, submap_cap, cloud_cap)
+    accepted = accepted & (store.count > 2)
+
+    # every accepted edge enters the graph; the solve and rewrite run only
+    # when its implied correction reaches loop_rewrite_min_m (smaller
+    # confirmations wait for the next triggered or the final solve)
+    w = 1.0 / torch.clamp(fitness * cfg.pg_loop_var_scale, min=1e-6)
+    edges_new = pg.add_edge(state.edges, idx, cur, t_rel, q_rel, w, w)
+    state1 = state._replace(
+        edges=tree_where(accepted, edges_new, state.edges),
+        n_loops=state.n_loops + accepted.to(torch.int32))
+    solve = accepted & (corr_t >= cfg.loop_rewrite_min_m)
+
+    def apply():
+        new, good = _solve_and_rewrite(state1, state1.edges, cfg, opt_iters,
+                                       n_window, gp)
+        # whole-solve guard: a non-finite live pose discards the whole
+        # application, the edge included (the next attempt re-measures it)
+        return tree_where(good, new, state), good
+
+    new_state, applied = cond(solve, apply,
+                              (state1, torch.zeros_like(solve)))
+    info = dict(found=found, accepted=accepted, applied=applied,
+                fitness=fitness, matched=idx, corr_t=corr_t)
+    return new_state, info
+
+
+def _final_solve_impl(state: MapperState, cfg: SlamConfig, opt_iters: int,
+                      n_window: int, gp: lmn.GridParams):
+    """One solve over every accumulated edge and the rewrite, with no new
+    measurement: it takes in the add-only loop edges (the reference's
+    correctPoses after its last iSAM2 update, :1767-1795).  Kept only when
+    every live pose is finite and the store holds more than 2 keyframes."""
+    new, good = _solve_and_rewrite(state, state.edges, cfg, opt_iters,
+                                   n_window, gp)
+    return tree_where(good & (state.store.count > 2), new, state)
+
+
 def mapper_state_from_numpy(d, device=None, dtype=torch.float32):
     """The reference package's MapperState as the port's tensors.
 
@@ -291,25 +377,32 @@ class LinsMapper:
 
     device / dtype: the card and float32 unless given (the CPU tests pass
     "cpu" and float64).  `map_corner_cap` / `map_surf_cap` size the map
-    hash tables, as in the reference.
+    hash tables, as in the reference; `submap_cap` / `cloud_cap` the loop
+    closure's submap and current cloud.
     """
 
     def __init__(self, cfg: SlamConfig, corner_cap=None, surf_cap=None,
                  outlier_cap=None, n_window=None, map_corner_cap=None,
-                 map_surf_cap=None, dtype=None, device=None):
+                 map_surf_cap=None, submap_cap=None, cloud_cap=None,
+                 dtype=None, device=None):
         if not cfg.loop_closure_enabled or cfg.lc_map_mode == "radius":
             raise NotImplementedError(
                 "LinsMapper: the radius-selected local map "
                 "(loop_closure_enabled=False or lc_map_mode='radius') is "
-                f"{_SLICE3}; use the recent-window map")
-        if cfg.loop_attempts:
+                f"{pg.SLICE4}; use the recent-window map")
+        if cfg.loop_attempts and cfg.max_keyframes > 1024:
             raise NotImplementedError(
-                "LinsMapper: loop-closure attempts and the pose-graph solve "
-                f"are {_SLICE3}; pass cfg.replace(loop_attempts=False)")
+                f"LinsMapper: loop closure at max_keyframes="
+                f"{cfg.max_keyframes} needs the sparse pose-graph solve, "
+                f"{pg.SLICE4}")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = resolve_dtype(dtype)
         self.caps = derive_caps(cfg, corner_cap, surf_cap, outlier_cap)
+        corner, surf = self.caps[:2]
+        # as the reference scales them: VLP-16 and HDL-64 give 16384 / 8192
+        self.submap_cap = submap_cap or min(16384, 4 * (corner + surf))
+        self.cloud_cap = cloud_cap or min(8192, 2 * (corner + surf))
         self.n_window = n_window or cfg.surrounding_keyframe_search_num
         gp = lmn.grid_params(cfg)
         if map_corner_cap:
@@ -321,12 +414,14 @@ class LinsMapper:
                                  self.dtype, self.device)
         self._has_map = False
         self.last_time = -np.inf
+        self.last_loop_time = -np.inf
         self.metrics = []
         self.trajectory = []
+        self.loop_info = []
 
     def shard_store_over(self, mesh, axis: str = "seq"):
         raise NotImplementedError(
-            f"LinsMapper.shard_store_over: the sharded store is {_SLICE3}")
+            f"LinsMapper.shard_store_over: the sharded store is {pg.SLICE4}")
 
     def warmup(self, cloud_dtype=None, chunk: int | None = None):
         """Kept for API parity with the reference package, whose warmup
@@ -373,26 +468,43 @@ class LinsMapper:
         self.trajectory.append((time, t_m, q_m))
         return t_m, q_m
 
+    def _loops(self) -> bool:
+        return self.cfg.loop_closure_enabled and self.cfg.loop_attempts
+
     def plan_chunk(self, ts_host):
         """Host-side cadence gating for a chunk of scan times: which scans
-        get a mapping step.  Advances the same bookkeeping as `process`, so
-        streaming and chunked runs see the same cadence.  Returns the map
-        flags as a host bool array."""
+        get a mapping step and which a loop attempt.  Advances the same
+        bookkeeping as `process` and `maybe_close_loop`, so streaming and
+        chunked runs see the same cadences.  Returns (map_flags,
+        loop_flags) as host bool arrays."""
         mf = np.zeros(len(ts_host), bool)
+        lf = np.zeros(len(ts_host), bool)
         for i, t in enumerate(ts_host):
             t = float(t)
             if t - self.last_time >= self.cfg.mapping_process_interval:
                 mf[i] = True
                 self.last_time = t
-        return mf
+            if self._loops() and t - self.last_loop_time >= 1.0:
+                lf[i] = True
+                self.last_loop_time = t
+        return mf, lf
+
+    def _loop_step(self, time_dev):
+        self.state, info = _loop_step_impl(
+            self.state, time_dev, self.cfg, self.submap_cap, self.cloud_cap,
+            8, self.n_window, self.gp)
+        self.loop_info.append(info)
+        return info
 
     def process_chunk(self, ts_host, rns, qbns, clouds, ts_dev, map_flags,
-                      imu_rp_dev=None):
-        """The mapping cadence over a K-scan chunk of odometry outputs:
-        a mapping step on each scan `map_flags` (from plan_chunk) marks,
+                      loop_flags, imu_rp_dev=None):
+        """Mapping and loop closure at their cadences over a K-scan chunk of
+        odometry outputs: a mapping step on each scan `map_flags` marks and
+        a loop attempt on each `loop_flags` marks (both from plan_chunk),
         then every scan's fused pose with the correction current at that
-        scan (process -> fuse, the streaming order).  Nothing is read back
-        to the host.  Returns the fused (pos (K,3), quat (K,4)) blocks.
+        scan (process -> loop -> fuse, the streaming order).  Nothing is
+        read back to the host.  Returns the fused (pos (K,3), quat (K,4))
+        blocks.
 
         ts_dev: (K,) scan times on the device; clouds: the odometry's
         `last_chunk_clouds`; imu_rp_dev: optional (K, 2) roll/pitch.
@@ -411,20 +523,30 @@ class LinsMapper:
                     clouds["cval"][i], clouds["sxyz"][i], clouds["sval"][i],
                     clouds["oxyz"][i], clouds["oval"][i], imu_rp_dev[i])
                 self.trajectory.append((float(t), t_m, q_m))
+            if loop_flags[i]:
+                self._loop_step(ts_dev[i].to(dt))
             p, q = warm_start(self.state, rn, qbn)
             pos.append(p)
             quat.append(q)
         return torch.stack(pos), torch.stack(quat)
 
     def maybe_close_loop(self, time: float):
-        """The 1 Hz loop-closure attempt.  The constructor refuses loop
-        attempts until the port's slice 3 fills this in, so there is
-        none."""
-        return None
+        """Attempt a loop closure at ~1 Hz (the loopClosureThread cadence,
+        lidar_mapping_node.cpp:1033-1041).  Returns the info dict (device
+        scalars: found, accepted, applied, fitness, matched, corr_t) or
+        None when loop attempts are off or the cadence skips."""
+        if not self._loops() or time - self.last_loop_time < 1.0:
+            return None
+        self.last_loop_time = time
+        return self._loop_step(torch.full((), time, dtype=self.dtype,
+                                          device=self.device))
 
     def final_solve(self):
-        raise NotImplementedError(
-            f"LinsMapper.final_solve: the pose-graph solve is {_SLICE3}")
+        """Pose-graph solve and rewrite over all accumulated edges
+        (_final_solve_impl); call once at the end of a run, before reading
+        the keyframe trajectory or the map."""
+        self.state = _final_solve_impl(self.state, self.cfg, 8,
+                                       self.n_window, self.gp)
 
     def rebuild_local_map(self):
         """Rebuild the derived local-map caches (voxel maps + eviction

@@ -93,11 +93,23 @@ def corner_residuals(p_w, nn, d2, q_valid):
 
 def surf_residuals(p_w, nn, d2, q_valid):
     """Point-to-plane residuals vs 5-NN plane fits
-    (surfOptimization, lidar_mapping_node.cpp:1460-1521)."""
+    (surfOptimization, lidar_mapping_node.cpp:1460-1521).
+
+    The port departs from the JAX package here on purpose: the plane's 3x3
+    normal equations are solved in float64 whatever the dtype, where the
+    reference solves them in its working dtype.  In float64 both agree; in
+    float32 the card keeps the matches the reference's float32 arithmetic
+    drops, so a float32 card run is compared with a float32 reference run
+    that computes this step differently."""
     near = d2[:, 4] < 1.0
-    # solve A n = -1 (plane n·x + 1 = 0) via normal equations
-    eye = torch.eye(3, dtype=p_w.dtype, device=p_w.device)
-    n = solve_sym3x3(_outer_sum(nn) + 1e-9 * eye, -torch.sum(nn, dim=1))
+    # solve A n = -1 (plane n·x + 1 = 0) via normal equations, in float64
+    # whatever the dtype: squaring world coordinates makes the system too
+    # ill-conditioned for float32, which then fails the fit test below on
+    # 5% (VLP-16) to 12% (HDL-64) more neighbourhoods than float64 does
+    nn64 = nn.to(torch.float64)
+    eye = torch.eye(3, dtype=torch.float64, device=p_w.device)
+    n = solve_sym3x3(_outer_sum(nn64) + 1e-9 * eye,
+                     -torch.sum(nn64, dim=1)).to(p_w.dtype)
     norm_safe = torch.clamp(_norm(n), min=1e-12)
     pa = n / norm_safe[:, None]
     pd = 1.0 / norm_safe

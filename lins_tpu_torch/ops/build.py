@@ -2,9 +2,10 @@
 
 Each `lins_tpu_torch/csrc/<name>.cu` is compiled by `nvcc` for Hopper
 (`sm_90a`) into `lins_tpu_torch/_build/lib<name>.so` at first use and loaded
-with `ctypes`.  A library newer than its source is reused.  Nothing here
-runs at import time (the CPU tests import every module of the port): `nvcc`
-is reached only when a kernel launches or `build_all` is called.
+with `ctypes`.  A library newer than its source and than every shared
+header (`csrc/*.cuh`) is reused.  Nothing here runs at import time (the CPU
+tests import every module of the port): `nvcc` is reached only when a
+kernel launches or `build_all` is called.
 """
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ import tempfile
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "_build")
-KERNELS = ("label_components", "select_candidates")
+KERNELS = ("label_components", "label_blocked", "select_candidates")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -41,9 +42,11 @@ def library_path(name: str) -> str:
 
 def _stale(name: str) -> bool:
     lib = library_path(name)
-    src = os.path.join(CSRC, f"{name}.cu")
-    return (not os.path.exists(lib)
-            or os.path.getmtime(lib) < os.path.getmtime(src))
+    if not os.path.exists(lib):
+        return True
+    srcs = [os.path.join(CSRC, f"{name}.cu")] + [
+        os.path.join(CSRC, f) for f in os.listdir(CSRC) if f.endswith(".cuh")]
+    return os.path.getmtime(lib) < max(os.path.getmtime(s) for s in srcs)
 
 
 def _start(name: str, verbose: bool):

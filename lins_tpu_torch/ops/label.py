@@ -1,10 +1,9 @@
-"""Grid connected-components labelling: the CUDA kernel K1 and its plain
-PyTorch version.
+"""Grid connected-components labelling: the CUDA kernels K1 and K2 and
+their plain PyTorch versions.
 
-`label_components` replaces the TPU kernel
-`lins_tpu/ops/pallas_label.py::label_components_pallas` (kernel body
-`_label_kernel`).  Contract (that of `label_from_edges` in
-`lins_tpu/frontend/segmentation.py`): from boolean edge masks
+`label_components` is the one entry point.  Contract (that of
+`label_from_edges` in `lins_tpu/frontend/segmentation.py`): from boolean
+edge masks
   e_right[..., i, j]: edge (i,j)-(i,j+1 mod S)   (wraps at the seam)
   e_down [..., i, j]: edge (i,j)-(i+1,j)         (no wrap)
   eligible[..., i, j]: the cell takes part
@@ -13,11 +12,21 @@ of its 4-connected component and each ineligible cell 2^30.  The label
 being the least member is load-bearing: `segment_from_labels` reads the
 component's lowest row from it.
 
-On a CUDA tensor the wrapper launches `csrc/label_components.cu` (design and
-bound in its header: one block per scan, labels in shared memory, hook +
-pointer-jump rounds to the fixpoint) or raises; there is no fallback.  On a
-CPU tensor it runs `label_components_plain`, which iterates the union-find
-propagation of `label_from_edges` to the same fixpoint.
+`route(L, S)` picks the kernel by the port's own shared memory (the
+reference routes by its TPU's VMEM, `lins_tpu/odometry/estimator.py:
+241-286`; labels are exact either way, so the outputs are the same):
+  * K1 (`csrc/label_components.cu`, replaces `lins_tpu/ops/pallas_label.py
+    ::label_components_pallas`) when a whole scan fits one block's shared
+    memory: one block per scan, hook + pointer-jump rounds to the fixpoint;
+  * K2 (`csrc/label_blocked.cu`, replaces `label_components_blocked`) for
+    taller grids with L a multiple of 16 (HDL-64, OS1-64): one block per
+    16-row block, then an exact seam merge, one block per scan.
+On a CUDA tensor the wrapper launches its kernel or raises; there is no
+fallback.  On a CPU tensor it runs the kernel's plain version:
+`label_components_plain` iterates the union-find propagation of
+`label_from_edges` to the same fixpoint; `label_blocked_plain` has K2's
+structure (plain K1 on the masked blocks, then the seam merge of the
+reference iterated to its fixpoint).
 """
 from __future__ import annotations
 
@@ -28,6 +37,28 @@ import torch
 BIG = 2 ** 30
 # shared memory a block may opt in to on Hopper (H100/H200)
 _SMEM_LIMIT = 232448
+# rows of one K2 block (csrc/label_blocked.cu, kRows)
+BLOCK_ROWS = 16
+
+
+def _smem_bytes(L: int, S: int) -> int:
+    """Shared memory of one block labelling an L x S grid: an int32 label
+    and a flag byte per cell (csrc/label_grid.cuh)."""
+    return L * S * 5
+
+
+def route(L: int, S: int) -> str:
+    """The kernel that labels an L x S grid: "K1" when it fits one block's
+    shared memory, else "K2" when L is a multiple of 16 and a 16-row block
+    fits; raises ValueError for any other grid."""
+    if _smem_bytes(L, S) <= _SMEM_LIMIT:
+        return "K1"
+    if L % BLOCK_ROWS == 0 and _smem_bytes(BLOCK_ROWS, S) <= _SMEM_LIMIT:
+        return "K2"
+    raise ValueError(
+        f"label_components: a {L}x{S} grid needs {_smem_bytes(L, S)} B of "
+        f"shared memory per block (limit {_SMEM_LIMIT}) and is not a stack "
+        f"of {BLOCK_ROWS}-row blocks that fit")
 
 
 def _as_batch(x: torch.Tensor) -> torch.Tensor:
@@ -94,56 +125,138 @@ def label_components_plain(e_right, e_down, eligible):
 label_components_plain.calls = 0
 
 
-def _launch(er, ed, el, out):
+def label_blocked_plain(e_right, e_down, eligible):
+    """Plain PyTorch version of K2, (L, S) or (K, L, S) with L a multiple of
+    16 -> int32 labels: `label_components_plain` on the 16-row blocks with
+    the seam `e_down` edges masked, labels offset by the block's first flat
+    id, then the seam merge of `label_components_blocked` (min-hook of the
+    seam pairs' parents + two pointer-doubling steps) repeated until it
+    changes nothing.  Reads a flag on the host each round."""
+    label_blocked_plain.calls += 1
+    squeeze = eligible.dim() == 2
+    er, ed, el = (_as_batch(t).bool() for t in (e_right, e_down, eligible))
+    K, L, S = el.shape
+    R, LS = BLOCK_ROWS, L * S
+    nb = L // R
+    dev = el.device
+    seam = (torch.arange(L, device=dev) % R == R - 1)[:, None]
+    lab_b = label_components_plain(*(t.reshape(K * nb, R, S) for t in
+                                     (er, ed & ~seam, el)))
+    offs = (torch.arange(nb, dtype=torch.int32, device=dev)
+            * (R * S))[None, :, None, None]
+    lab_b = lab_b.reshape(K, nb, R, S)
+    lab = torch.where(lab_b < BIG, lab_b + offs, BIG).reshape(K, L, S)
+
+    # the labels on both sides of each kept seam edge, LS where there is none
+    rows = torch.arange(nb - 1, device=dev) * R + (R - 1)
+    la, lb = lab[:, rows], lab[:, rows + 1]
+    ok = ed[:, rows] & (la < BIG) & (lb < BIG)
+    a = torch.where(ok, la, LS).reshape(K, -1).long()
+    b = torch.where(ok, lb, LS).reshape(K, -1).long()
+    parent = torch.arange(LS + 1, device=dev).repeat(K, 1)
+    while True:
+        pa, pb = torch.gather(parent, 1, a), torch.gather(parent, 1, b)
+        m = torch.minimum(pa, pb)
+        new = parent.scatter_reduce(1, pa, m, "amin").scatter_reduce(
+            1, pb, m, "amin")
+        new = torch.gather(new, 1, new)
+        new = torch.gather(new, 1, new)
+        if torch.equal(new, parent):
+            break
+        parent = new
+    root = torch.gather(parent, 1, torch.clamp(lab, max=LS).reshape(K, LS)
+                        .long()).reshape(K, L, S).to(torch.int32)
+    out = torch.where(lab < BIG, root, BIG)
+    return out[0] if squeeze else out
+
+
+label_blocked_plain.calls = 0
+
+
+def _checked(name, e_right, e_down, eligible):
+    """The three masks as contiguous (K, L, S) card tensors, after the
+    checks the kernels rely on."""
+    if eligible.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {eligible.device}")
+    ts = [_as_batch(t) for t in (e_right, e_down, eligible)]
+    shape = ts[2].shape
+    for what, t in zip(("e_right", "e_down", "eligible"), ts):
+        if t.dim() != 3 or t.shape != shape:
+            raise ValueError(f"{name}: {what} has shape {tuple(t.shape)}, "
+                             f"expected {tuple(shape)}")
+        if t.device != ts[2].device:
+            raise ValueError(f"{name}: {what} on {t.device}")
+        if t.dtype not in (torch.bool, torch.uint8):
+            raise TypeError(f"{name}: {what} is {t.dtype}, expected bool "
+                            f"or uint8")
+    return [t.contiguous() for t in ts]
+
+
+def _call(lib_name, fn_name, *args):
+    """Launch a kernel through its library's C function (pointers and the
+    stream as void*, sizes as int) and raise on a CUDA error."""
     from lins_tpu_torch.ops import build
 
-    lib = build.load("label_components")
-    fn = lib.label_components_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn = getattr(build.load(lib_name), fn_name)
+    fn.argtypes = [ctypes.c_int if isinstance(a, int) else ctypes.c_void_p
+                   for a in args] + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    K, L, S = el.shape
-    stream = torch.cuda.current_stream(el.device).cuda_stream
-    err = fn(er.data_ptr(), ed.data_ptr(), el.data_ptr(), out.data_ptr(),
-             K, L, S, stream)
+    err = fn(*(a if isinstance(a, int) else a.data_ptr() for a in args),
+             torch.cuda.current_stream(args[0].device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"label_components kernel launch failed: CUDA "
-                           f"error {err}")
+        raise RuntimeError(f"{fn_name} failed: CUDA error {err}")
+
+
+def _label_blocked(e_right, e_down, eligible):
+    """K2, the wrapper `label_components` calls for the grids `route`
+    sends to K2.
+
+    CUDA tensors: one call of the K2 kernels over the whole batch (a block
+    per 16-row block, then a merge block per scan), counted in
+    `_label_blocked.launches`.  CPU tensors: `label_blocked_plain`.
+    """
+    L, S = eligible.shape[-2:]
+    if route(L, S) != "K2":
+        raise ValueError(f"_label_blocked: route({L}, {S}) is not K2")
+    if eligible.device.type == "cpu":
+        return label_blocked_plain(e_right, e_down, eligible)
+    squeeze = eligible.dim() == 2
+    er, ed, el = _checked("_label_blocked", e_right, e_down, eligible)
+    K = el.shape[0]
+    out = torch.empty(el.shape, dtype=torch.int32, device=el.device)
+    if K > 0:
+        parent = torch.empty((K, L * S + 1), dtype=torch.int32,
+                             device=el.device)
+        _call("label_blocked", "label_blocked_launch", er, ed, el, out,
+              parent, K, L, S)
+        _label_blocked.launches += 1
+    return out[0] if squeeze else out
+
+
+_label_blocked.launches = 0
 
 
 def label_components(e_right, e_down, eligible):
-    """Connected-component labels of (L, S) or (K, L, S) edge masks, int32.
+    """Connected-component labels of (L, S) or (K, L, S) edge masks, int32,
+    by the kernel `route(L, S)` picks.
 
-    CUDA tensors: one launch of the K1 kernel over the whole batch (one
-    block per scan), counted in `label_components.launches`.  CPU tensors:
-    `label_components_plain`.
+    K1 on CUDA tensors: one launch over the whole batch (one block per
+    scan), counted in `label_components.launches`; K2 is counted in
+    `_label_blocked.launches`.  CPU tensors: the picked kernel's plain
+    version.
     """
+    L, S = eligible.shape[-2:]
+    if route(L, S) == "K2":
+        return _label_blocked(e_right, e_down, eligible)
     if eligible.device.type == "cpu":
         return label_components_plain(e_right, e_down, eligible)
-    if eligible.device.type != "cuda":
-        raise ValueError(f"label_components: unsupported device "
-                         f"{eligible.device}")
     squeeze = eligible.dim() == 2
-    ts = [_as_batch(t) for t in (e_right, e_down, eligible)]
-    shape = ts[2].shape
-    for name, t in zip(("e_right", "e_down", "eligible"), ts):
-        if t.dim() != 3 or t.shape != shape:
-            raise ValueError(f"label_components: {name} has shape "
-                             f"{tuple(t.shape)}, expected {tuple(shape)}")
-        if t.device != ts[2].device:
-            raise ValueError(f"label_components: {name} on {t.device}")
-        if t.dtype not in (torch.bool, torch.uint8):
-            raise TypeError(f"label_components: {name} is {t.dtype}, "
-                            f"expected bool or uint8")
-    K, L, S = shape
-    if L * S * 5 > _SMEM_LIMIT:
-        raise ValueError(
-            f"label_components: a {L}x{S} grid needs {L * S * 5} B of shared "
-            f"memory per block (limit {_SMEM_LIMIT}); tall grids are the "
-            f"blocked kernel's job, not ported yet")
-    er, ed, el = (t.contiguous() for t in ts)
-    out = torch.empty(shape, dtype=torch.int32, device=el.device)
+    er, ed, el = _checked("label_components", e_right, e_down, eligible)
+    K = el.shape[0]
+    out = torch.empty(el.shape, dtype=torch.int32, device=el.device)
     if K > 0:
-        _launch(er, ed, el, out)
+        _call("label_components", "label_components_launch", er, ed, el, out,
+              K, L, S)
         label_components.launches += 1
     return out[0] if squeeze else out
 

@@ -109,3 +109,43 @@ def voxel_downsample(xyz: torch.Tensor, mask: torch.Tensor, leaf: float,
     ok = torch.zeros(m + 1, dtype=torch.bool, device=dev)
     ok[dest] = start
     return out[:m], ok[:m]
+
+
+def top_k_nn(query: torch.Tensor, q_valid: torch.Tensor, ref: torch.Tensor,
+             r_valid: torch.Tensor, k: int = 5, chunk: int = 8192):
+    """k nearest neighbours of each query in ref by brute force, chunked so
+    the distance matrix never grows beyond (Q, chunk) (the reference's
+    replacement of the mapping KD-trees, lidar_mapping_node.cpp:1355-1357,
+    1465).  Returns (idx (Q,k) int32, d2 (Q,k)); invalid refs are at +inf
+    and invalid queries get +inf distances.
+
+    The distance is the reference's expanded form qq + rr - 2·q·rᵀ, whose
+    rounding decides near ties.  Ties keep the lower index, as `lax.top_k`
+    does on the concatenated (best so far, new chunk) row: a first-index
+    argmin for k=1, a stable sort otherwise.  The (Q, chunk) block is
+    formed in place (256 MiB in float32 at 8192 x 8192)."""
+    Q, R = query.shape[0], ref.shape[0]
+    dev = query.device
+    qq = torch.sum(query * query, dim=-1, keepdim=True)
+    best_d = torch.full((Q, k), torch.inf, dtype=query.dtype, device=dev)
+    best_i = torch.zeros((Q, k), dtype=torch.int32, device=dev)
+    for c0 in range(0, R, chunk):
+        r, rv = ref[c0:c0 + chunk], r_valid[c0:c0 + chunk]
+        d2 = (qq + torch.sum(r * r, dim=-1)[None, :]).sub_(
+            torch.matmul(query, r.T).mul_(2.0))
+        d2.clamp_(min=0.0).masked_fill_(~rv[None, :], torch.inf)
+        if k == 1:
+            a = torch.argmin(d2, dim=1, keepdim=True)
+            m = torch.gather(d2, 1, a)
+            take = m < best_d
+            best_d = torch.where(take, m, best_d)
+            best_i = torch.where(take, (a + c0).to(torch.int32), best_i)
+        else:
+            ids = torch.arange(c0, c0 + r.shape[0], dtype=torch.int32,
+                               device=dev).expand(Q, -1)
+            cat_d = torch.cat([best_d, d2], dim=1)
+            sel = torch.sort(cat_d, dim=1, stable=True).indices[:, :k]
+            best_d = torch.gather(cat_d, 1, sel)
+            best_i = torch.gather(torch.cat([best_i, ids], dim=1), 1, sel)
+    best_d = torch.where(q_valid[:, None], best_d, torch.inf)
+    return best_i, best_d

@@ -5,9 +5,10 @@ The reference's 4-process ROS graph (run_port_exp.launch:17-31) becomes an
 in-process pipeline: LinsOdometry (image_projection + lins_fusion nodes),
 LinsMapper (lidar_mapping node) and the high-rate pose fusion of
 transform_fusion_node.cpp:91-215 (odometry pose composed with the latest
-map correction).  `enable_mapping=False` runs the odometry alone.  The
-mapper runs the recent-window map without loop attempts; loop closure is
-the port's slice 3 (LinsMapper raises NotImplementedError for it).
+map correction).  `enable_mapping=False` runs the odometry alone.  With
+mapping, the mapper follows the odometry at its 0.3 s cadence and attempts
+a loop closure at 1 Hz (`loop_attempts`), in the order process -> loop ->
+fuse.
 """
 from __future__ import annotations
 
@@ -68,6 +69,7 @@ class LinsSlam:
                                 odo.last_surf["xyz"], odo.last_surf["valid"],
                                 odo.last_outlier["xyz"],
                                 odo.last_outlier["valid"], imu_rp=rp)
+            self.mapper.maybe_close_loop(t)
             # high-rate fused output (transform_fusion_node)
             pos, quat = warm_start(self.mapper.state, pos, quat)
         self.trajectory.append((t, pos, quat))
@@ -130,20 +132,20 @@ class LinsSlam:
         chunks = odo.prefetch_chunks(
             scan_ts, [data["scans_xyz"][j] for j in ks],
             [data["scans_n"][j] for j in ks], chunk=chunk, with_imu=True)
-        # stage what the mapper needs up front: cadence flags (host), scan
-        # times and IMU roll/pitch per chunk (device)
+        # stage what the mapper needs up front: mapping and loop cadence
+        # flags (host), scan times and IMU roll/pitch per chunk (device)
         staged = []
         for ci, (ts, *_) in enumerate(chunks):
             if self.mapper is None:
                 staged.append(None)
                 continue
-            mf = self.mapper.plan_chunk(ts)
+            mf, lf = self.mapper.plan_chunk(ts)
             # scan times as float32, as the reference stages them
             ts_dev = torch.as_tensor(np.asarray(ts, np.float32),
                                      device=odo.device)
             rp_dev = torch.as_tensor(rp_all[ci * chunk:(ci + 1) * chunk],
                                      dtype=odo.dtype, device=odo.device)
-            staged.append((ts_dev, mf, rp_dev))
+            staged.append((ts_dev, mf, lf, rp_dev))
         if odo.device.type == "cuda":
             torch.cuda.synchronize(odo.device)
         return list(zip(chunks, staged)), ks[len(ks) - tail:] if tail else []
@@ -169,14 +171,15 @@ class LinsSlam:
         return rp_all
 
     def _post_chunk(self, ts, staged=None):
-        """Mapping over one finished chunk + per-scan fused poses, read
-        lazily (one host copy of the whole block when first read)."""
+        """Mapping and loop closure over one finished chunk + per-scan fused
+        poses, read lazily (one host copy of the whole block when first
+        read)."""
         rns, qbns = self.odometry.last_chunk_poses
         if self.mapper is not None:
-            ts_dev, mf, rp_dev = staged
+            ts_dev, mf, lf, rp_dev = staged
             ps, qs = self.mapper.process_chunk(
                 ts, rns, qbns, self.odometry.last_chunk_clouds, ts_dev, mf,
-                imu_rp_dev=rp_dev)
+                lf, imu_rp_dev=rp_dev)
         else:
             ps, qs = rns, qbns
         p_rows, q_rows = LazyRows(ps), LazyRows(qs)

@@ -43,10 +43,53 @@ def test_label_kernel_matches_plain(cuda_device):
 
 @pytest.mark.cuda
 def test_label_kernel_refuses_tall_grids(cuda_device):
-    arrs = [torch.zeros((1, 64, 1800), dtype=torch.bool, device=cuda_device)
+    """A grid over one block's shared memory goes to K2 when it is a stack
+    of 16-row blocks; any other is refused, not labelled by a fallback."""
+    arrs = [torch.zeros((1, 72, 1800), dtype=torch.bool, device=cuda_device)
             for _ in range(3)]
     with pytest.raises(ValueError, match="shared memory"):
         label.label_components(*arrs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4, 64, 1800), (3, 64, 1024),
+                                   (1, 32, 2000)])
+def test_blocked_kernel_matches_plain(cuda_device, shape):
+    arrs = [torch.as_tensor(a, device=cuda_device)
+            for a in _random_edges(shape, shape[2])]
+    before = label._label_blocked.launches
+    got = label.label_components(*arrs)
+    assert label._label_blocked.launches == before + 1
+    assert torch.equal(got, label.label_blocked_plain(*arrs))
+    assert torch.equal(got, label.label_components_plain(*arrs))
+
+
+@pytest.mark.cuda
+def test_blocked_kernel_seam_cases(cuda_device):
+    """A column through every seam, a ring segment wrapping the column seam
+    joined down across two row seams, an empty and a full grid."""
+    L, S = 64, 900
+    cases = []
+    el, ed = np.zeros((L, S), bool), np.zeros((L, S), bool)
+    el[:, 7] = True
+    ed[:-1, 7] = True
+    cases.append((np.zeros((L, S), bool), ed, el))
+    el, er, ed = (np.zeros((L, S), bool) for _ in range(3))
+    el[15, :4] = el[15, -4:] = True
+    er[15, -4:] = er[15, :3] = True
+    el[16:40, S - 4] = True
+    ed[15:39, S - 4] = True
+    cases.append((er, ed, el))
+    cases.append(tuple(np.zeros((L, S), bool) for _ in range(3)))
+    full = np.ones((L, S), bool)
+    ed = full.copy()
+    ed[-1] = False
+    cases.append((full, ed, full))
+    for er, ed, el in cases:
+        arrs = [torch.as_tensor(a, device=cuda_device) for a in (er, ed, el)]
+        got = label.label_components(*arrs)
+        assert torch.equal(got, label.label_blocked_plain(*arrs))
+    assert int(got.max()) == 0          # the full grid: one component
 
 
 def _sequence(device):
@@ -192,3 +235,53 @@ def test_mapping_replay_on_card_matches_cpu(cuda_device):
     _, pc, _ = cpu.trajectory_arrays()
     assert np.isfinite(pg).all()
     np.testing.assert_allclose(pg, pc, rtol=0, atol=0.05)
+
+
+@pytest.mark.cuda
+def test_loop_replay_on_card(cuda_device):
+    """Full SLAM with loop closure on the card (TINY sensor, the revisiting
+    circuit of tests/test_slam_integration.py): every chunk free of host
+    syncs, loop attempts aligned with K3, at least one loop closed, one
+    edge per keyframe after the first plus one per loop; the first scans
+    within 5 cm of float64 on the CPU."""
+    from lins_tpu_torch.datasets.synthetic import generate_sequence
+    from lins_tpu_torch.slam import LinsSlam
+
+    cfg = TINY.replace(use_pallas=True, use_pallas_select=True,
+                       loop_time_gate=4.0)
+    kw = dict(corner_cap=256, surf_cap=1024, map_corner_cap=4096,
+              map_surf_cap=8192)
+    data = generate_sequence(cfg, n_scans=95, kind="loop", speed=2.2,
+                             loop_scale=0.32, acc_noise=0.02,
+                             gyr_noise=0.002, ba=(0.05, -0.03, 0.02),
+                             bw=(0.002, -0.001, 0.0015), device=cuda_device)
+    card = LinsSlam(cfg, **kw)
+    jobs, tail = card.stage_replay(data, chunk=12)
+    plain_before = (select.select_candidates_plain.calls,
+                    label.label_components_plain.calls)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for job in jobs:
+            card.run_chunk(job)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for j in tail:
+        card.add_scan(float(data["scan_times"][j]) + cfg.scan_period,
+                      data["scans_xyz"][j], data["scans_n"][j])
+    assert (select.select_candidates_plain.calls,
+            label.label_components_plain.calls) == plain_before
+    m = card.mapper
+    st = m.state
+    n_loops = int(st.n_loops)
+    assert len(m.loop_info) >= 8
+    assert n_loops >= 1
+    acc = [i for i in m.loop_info if bool(i["accepted"])]
+    assert len(acc) == n_loops and all(float(i["fitness"]) < 0.3
+                                       for i in acc)
+    assert int(st.edges.count) == int(st.store.count) - 1 + n_loops
+    _, pg, qg = card.trajectory_arrays()
+    assert np.isfinite(pg).all() and np.isfinite(qg).all()
+    cpu = LinsSlam(cfg, device="cpu", dtype=torch.float64, **kw).run_replay(
+        data, n_scans=26, chunk=12)
+    _, pc, _ = cpu.trajectory_arrays()
+    np.testing.assert_allclose(pg[:len(pc)], pc, rtol=0, atol=0.05)

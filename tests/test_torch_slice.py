@@ -98,9 +98,14 @@ def test_final_filter_state(runs):
     (dict(loop_closure_enabled=False), "radius"),
     (dict(lc_map_mode="radius"), "radius")])
 def test_slam_loop_closure_waits_for_slice_3(change, match):
-    """VLP16's defaults fire loop attempts; without loop closure (or with
-    lc_map_mode="radius") the map is radius-selected.  Both are slice 3."""
-    with pytest.raises(NotImplementedError, match=f"{match}.*slice 3"):
+    """VLP16's defaults fire loop-closure attempts, which the port runs
+    since slice 3; without loop closure (or with lc_map_mode="radius") the
+    map is radius-selected, which waits for slice 4."""
+    if not change:
+        slam = LinsSlam(TCFG, device="cpu")
+        assert TCFG.loop_attempts and slam.mapper._loops(), match
+        return
+    with pytest.raises(NotImplementedError, match=f"{match}.*slice 4"):
         LinsSlam(TCFG.replace(**change), device="cpu")
 
 
