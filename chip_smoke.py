@@ -15,11 +15,18 @@ Phases, in order; any failure exits non-zero:
                  a real HDL-64 chunk; K3 on random gathered blocks with
                  ties, tombstones, invalid rows and short rows at the
                  mapping shapes and the loop polish's; K6 on the canary's shapes (and against
-                 torch.topk)
+                 torch.topk); K4 and K5 at the odometry's shapes (512 x 6144
+                 and 192 x 2048) in both row forms and weight states, on
+                 random clouds with exact ties, invalid rows with NaN
+                 coordinates, empty sets and far queries, and on the real
+                 trip inputs of one RUNNING VLP-16 scan and one HDL-64 scan
   4. odometry    LinsSlam(VLP16, max_points=28800, use_pallas=True,
                  enable_mapping=False).run_replay over a synthetic gentle
                  sequence (6 + 4x32 scans at 1.5 m/s): label launches,
-                 finite poses, odometry ATE <= 0.25 m, no plain labelling;
+                 K4 and K5 launches (>= 2 x num_iter per RUNNING scan: the
+                 IESKF trips and the GN fallback's), finite poses, odometry
+                 ATE <= 0.25 m, no plain labelling or association (on every
+                 path);
                  in the same run, scans/s timed as bench.py times it
                  (chunks 1-3 after a warm chunk 0, synchronize fences), the
                  warm chunk's host syncs (PyTorch's sync debug mode), peak
@@ -105,6 +112,12 @@ LOOP_CPU_TOL_RAD = 0.01
 LOOP_FIT_TOL = 0.10
 SOLVE_CPU_TOL_M = 1e-3
 SOLVE_CPU_TOL_RAD = 1e-3
+# K4/K5, card vs plain: counts equal; each entry (a, b) of the 8x8 Gram
+# G of the rows [J6 | r] (JtJ, Jtr, sum r^2) within K45_TOL of its own
+# scale sqrt(G_aa * G_bb), by Cauchy-Schwarz a bound of that entry's sum of
+# |terms|: each of two float32 sums of up to 512 rows, in different orders,
+# errs by at most about 512 * 2^-24 of it
+K45_TOL = 2 * 512 * 2.0 ** -24
 # H100 SXM published peaks (NVIDIA data sheet): HBM rate, and the float32
 # rate outside the tensor cores, used for the kernels' scalar operations
 HBM_BYTES_PER_S = 3.35e12
@@ -136,6 +149,31 @@ def cuda_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps, sleep_cycles=int(2e8)):
+    """Mean milliseconds of `fn()` on the card over `reps` calls enqueued
+    while the card sleeps (torch.cuda._sleep), so that the calls run back
+    to back and the host's enqueue rate is not what is timed; fails when
+    the enqueue outlasted the sleep."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    s0, s1, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+    s0.record()
+    torch.cuda._sleep(sleep_cycles)
+    s1.record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_ms = 1e3 * (time.perf_counter() - t0)
+    e1.record()
+    torch.cuda.synchronize()
+    sleep_ms = s0.elapsed_time(s1)
+    check(host_ms < sleep_ms, f"{reps} calls enqueued in {host_ms:.1f} ms, "
+          f"inside the card's {sleep_ms:.1f} ms sleep")
+    return s1.elapsed_time(e1) / reps
 
 
 def bound(bytes_moved, ops):
@@ -203,6 +241,7 @@ def stage_breakdown(odo, xyz, n_points):
     from lins_tpu_torch.imu import eskf
     from lins_tpu_torch.odometry import gn_icp, ieskf
     from lins_tpu_torch.odometry.estimator import running_step_impl
+    from lins_tpu_torch.ops import assoc
     from lins_tpu_torch.ops.label import label_components
 
     cfg, dev, dt = odo.cfg, odo.device, odo.dtype
@@ -227,6 +266,12 @@ def stage_breakdown(odo, xyz, n_points):
         pre["e_right"], pre["e_down"], pre["eligible"]))
     _, feats = stage("frontend_post", lambda: frontend_post(labels, pre, cfg))
     prop = stage("IMU propagate", lambda: eskf.propagate(fs, *imu, cfg))
+    flat, sharp = assoc.queries(feats.flat, dt), assoc.queries(feats.sharp,
+                                                               dt)
+    refs = stage("pack the reference sets", lambda: assoc.reference_sets(
+        ls, lc, dt))
+    stage("K4 + K5, one IESKF trip", lambda: assoc.scan_normal_equations(
+        flat, sharp, *refs, prop.rn, prop.qbn, 1, cfg, "ieskf"))
     stage(f"ieskf.update, {cfg.num_iter} trips", lambda: ieskf.update(
         prop, feats.flat, feats.sharp, ls, lc, cfg))
     stage(f"GN fallback, {cfg.num_iter} trips",
@@ -773,6 +818,263 @@ def phase_k6():
     return out
 
 
+def _k45_case(seed, Qs, Rs, Qc, Rc, rings, lattice=False, far=False,
+              no_query=False, no_reference=False, nan_pad=False):
+    """Random surf and corner sets on the card: queries in an 80 m box,
+    references scattered about them on `rings` rings, about 10% of each
+    invalid.  `lattice`: every coordinate on a 0.25 m lattice and no
+    de-skew time, so many distances tie exactly; `far`: every query 200 m
+    off; `nan_pad`: the invalid rows' coordinates NaN."""
+    import torch
+
+    from lins_tpu_torch.ops import assoc
+
+    rng = np.random.default_rng(seed)
+    dev = torch.device("cuda")
+    sets = []
+    for Q, R in ((Qs, Rs), (Qc, Rc)):
+        q = rng.uniform(-40, 40, (Q, 3)) * np.asarray([1.0, 1.0, 0.1])
+        r = q[rng.integers(0, Q, R)] + rng.normal(0, 0.8, (R, 3))
+        rel = rng.uniform(0, 1, Q)
+        if lattice:
+            q, r, rel = np.round(q * 4) / 4, np.round(r * 4) / 4, 0 * rel
+        if far:
+            q = q + np.asarray([200.0, 0.0, 0.0])
+        qv, rv = rng.random(Q) < 0.9, rng.random(R) < 0.9
+        qv &= not no_query
+        rv &= not no_reference
+        if nan_pad:
+            q[~qv], rel[~qv], r[~rv] = np.nan, np.nan, np.nan
+
+        def t(a, dt=torch.float32):
+            return torch.as_tensor(a).to(device=dev, dtype=dt).contiguous()
+
+        sets.append((assoc.Queries(t(q), t(rel), t(qv, torch.bool)),
+                     assoc.references(t(r), t(rng.integers(0, rings, R),
+                                              torch.int32),
+                                      t(rv, torch.bool))))
+    return sets
+
+
+def _k45_equal(surf, corner, rn, qbn, cfg, what):
+    """K4 and K5 in one launch against their plain versions on the same
+    card tensors, in both row forms and weight states; returns the largest
+    absolute and scale-relative differences of the blocks."""
+    import torch
+
+    from lins_tpu_torch.ops import assoc
+
+    err_abs = err_rel = 0.0
+    max_d2 = cfg.nearest_feature_search_sq_dist
+    for form in ("ieskf", "gn"):
+        pose = assoc.pose_scalars(rn, qbn, form)
+        scale = (cfg.lidar_scale if form == "ieskf" else
+                 assoc.GN_RES_SCALE)
+        for weighted in (False, True):
+            got = assoc.launch(surf, corner, pose, form, weighted, max_d2,
+                               scale)
+            torch.cuda.synchronize()
+            for k, (kind, pair) in enumerate(((assoc.SURF, surf),
+                                              (assoc.CORNER, corner))):
+                want = assoc._plain(kind, *pair, pose, form, weighted,
+                                    max_d2, scale)
+                e, rel, fin = k45_diff(got[k], want)
+                err_abs, err_rel = max(err_abs, e), max(err_rel, rel)
+                n_g, n_w = int(got[k][3]), int(want[3])
+                check(n_g == n_w and fin and rel <= K45_TOL,
+                      f"K{4 + k} == plain on {what} ({form} rows, weighted "
+                      f"{int(weighted)}): {n_g} of {pair[0].xyz.shape[0]} "
+                      f"rows kept (plain {n_w}), every entry within "
+                      f"{rel:.2e} of its scale (largest difference {e:.3g})")
+    return err_abs, err_rel
+
+
+def k45_diff(got, want):
+    """(largest absolute difference, largest difference over its entry's
+    scale, all finite) of one set's (JtJ, Jtr, sum r^2) against the plain
+    version's.  Entry (a, b) of the Gram of [J6 | r] has the scale
+    sqrt(G_aa * G_bb) of the plain diagonal; where that is 0 the entry must
+    equal exactly."""
+    import torch
+
+    def gram(blocks):
+        G = torch.zeros((7, 7), dtype=torch.float64)
+        G[:6, :6] = blocks[0].double().cpu()
+        G[:6, 6] = G[6, :6] = blocks[1].double().cpu()
+        G[6, 6] = blocks[2].double().cpu()
+        return G
+
+    g, w = gram(got), gram(want)
+    d = w.diagonal().clamp(min=0.0)
+    scale = torch.sqrt(d[:, None] * d[None, :])
+    diff = (g - w).abs()
+    rel = torch.where(scale > 0, diff / scale.clamp(min=1e-300),
+                      torch.where(diff > 0, torch.inf, 0.0))
+    return (float(diff.nan_to_num(nan=torch.inf).max()),
+            float(rel.nan_to_num(nan=torch.inf).max()),
+            bool(torch.isfinite(g).all()))
+
+
+def _k45_sharp(real, cfg):
+    """The card-vs-plain rule is sharp enough to see a wrong residual: on
+    the real VLP-16 trip, a result whose GN residual column has the wrong
+    sign, whose GN Jtb position entries are zeroed or flipped, or whose
+    IESKF sum r^2 is 1% off must fail it."""
+    from lins_tpu_torch.ops import assoc
+
+    surf, corner, rn, qbn = real
+    max_d2 = cfg.nearest_feature_search_sq_dist
+    for form in ("gn", "ieskf"):
+        pose = assoc.pose_scalars(rn, qbn, form)
+        scale = (cfg.lidar_scale if form == "ieskf" else
+                 assoc.GN_RES_SCALE)
+        got = assoc.launch(surf, corner, pose, form, True, max_d2, scale)
+        for k, (kind, pair) in enumerate(((assoc.SURF, surf),
+                                          (assoc.CORNER, corner))):
+            J, b, r2, n = got[k]
+            wrong = {"ieskf": {"sum r^2 1% high": (J, b, r2 * 1.01, n)},
+                     "gn": {"residual sign flipped": (J, -b, r2, n),
+                            "Jtb position entries zeroed":
+                                (J, b * b.new_tensor([1, 1, 1, 0, 0, 0]),
+                                 r2, n),
+                            "Jtb position entries flipped":
+                                (J, b * b.new_tensor([1, 1, 1, -1, -1, -1]),
+                                 r2, n)}}[form]
+            for what, bad in wrong.items():
+                rel = k45_diff(bad, got[k])[1]
+                check(rel > K45_TOL,
+                      f"K{4 + k} check sees a wrong result ({form} rows, "
+                      f"{what}): {rel:.2e} of its entry's scale > "
+                      f"K45_TOL {K45_TOL:.2e}")
+
+
+def _trip_inputs(cfg, data, k):
+    """The association inputs of RUNNING scan k on the card: its flat and
+    sharp features, the previous scan's reference sets, and the last
+    relative pose as the linearisation pose."""
+    from lins_tpu_torch.frontend.pipeline import process_cloud
+    from lins_tpu_torch.ops import assoc
+
+    odo, _ = warm_odometry(cfg, data, k)
+    xyz_t, n_t = odo._scan_tensors(data["scans_xyz"][k], data["scans_n"][k])
+    _, _, feats = process_cloud(xyz_t, n_t, cfg)
+    dt = odo.dtype
+    surf, corner = assoc.reference_sets(odo.last_surf, odo.last_corner, dt)
+    rn, qbn = odo.rel_pose
+    return ((assoc.queries(feats.flat, dt), surf),
+            (assoc.queries(feats.sharp, dt), corner), rn, qbn)
+
+
+def _k45_work(kind, pair, pose, max_d2):
+    """(bytes, operations) of one set at these inputs.  Bytes: each input
+    read once (a query's 3 coordinates, time and flag, a reference's
+    16-byte packed row, the pose) and the set's 45 output words written
+    once.  Operations: 9 per (query, reference) pair whose distance the
+    kernel forms (3 differences, 3 products, 2 sums, a compare): pass 1
+    every valid query against every valid reference, pass 2 each query
+    with a reference within max_d2 against the valid references of the
+    rings its pass reads (ring[i1] less i1, and ±1, ±2 for K4; ±1, ±2 for
+    K5)."""
+    from lins_tpu_torch.ops import assoc
+
+    q, ref = pair
+    p0, _ = assoc.deskew(q.xyz, q.rel, pose)
+    i1, d1 = assoc._tripod(kind, p0, ref)[:2]
+    near = q.valid & (d1 < max_d2)
+    ring = ref.ring.long()
+    gap = (ring[None, :] - ring[i1][:, None]).abs()
+    window = (gap <= 2) & ref.valid[None, :]
+    if kind == assoc.CORNER:
+        window &= gap != 0
+    pairs = (int(q.valid.sum()) * int(ref.valid.sum())
+             + int(window[near].sum())
+             - (int(near.sum()) if kind == assoc.SURF else 0))
+    bytes_moved = (q.xyz.shape[0] * 17 + ref.xyz.shape[0] * 16
+                   + pose.numel() * 4 + 45 * 4)
+    return bytes_moved, 9 * pairs
+
+
+def phase_k45(cfg, data, cfg_h, data_h):
+    """K4 and K5 against their plain versions on the card, then their
+    times on the real VLP-16 trip; returns their JSON entries (launches
+    filled in by the main paths)."""
+    import torch
+
+    from lins_tpu_torch.ops import assoc
+
+    log("== 3. kernels: K4 surf_normal_equations and K5 "
+        "corner_normal_equations")
+    Qs, Rs, Qc, Rc = cfg.max_flat, cfg.max_less_flat, cfg.max_sharp, \
+        cfg.max_less_sharp
+    dev = torch.device("cuda")
+    rn = torch.tensor([0.31, -0.12, 0.02], device=dev)
+    qbn = torch.tensor([0.999, 0.011, -0.021, 0.031], device=dev)
+    qbn = qbn / torch.linalg.vector_norm(qbn)
+    ident = torch.tensor([1.0, 0.0, 0.0, 0.0], device=dev)
+    err_abs = err_rel = 0.0
+    cases = (("random clouds", dict(), rn, qbn),
+             ("a lattice (exact ties, no de-skew)", dict(lattice=True), rn,
+              ident),
+             ("invalid rows with NaN coordinates", dict(nan_pad=True), rn,
+              qbn),
+             ("no valid query", dict(no_query=True), rn, qbn),
+             ("no valid reference", dict(no_reference=True), rn, qbn),
+             ("every query beyond max_d2", dict(far=True), rn, qbn))
+    for seed, (what, kw, c_rn, c_qbn) in enumerate(cases):
+        surf, corner = _k45_case(seed, Qs, Rs, Qc, Rc, cfg.line_num, **kw)
+        e = _k45_equal(surf, corner, c_rn, c_qbn, cfg,
+                       f"{what} ({Qs}x{Rs}, {Qc}x{Rc})")
+        err_abs, err_rel = max(err_abs, e[0]), max(err_rel, e[1])
+    for name, c, d in (("VLP-16", cfg, data), ("HDL-64", cfg_h, data_h)):
+        surf, corner, t_rn, t_qbn = _trip_inputs(c, d, WARMUP_SCANS - 1)
+        e = _k45_equal(surf, corner, t_rn, t_qbn, c,
+                       f"the real trip inputs of a RUNNING {name} scan")
+        err_abs, err_rel = max(err_abs, e[0]), max(err_rel, e[1])
+        if name == "VLP-16":
+            real = (surf, corner, t_rn, t_qbn)
+    log(f"  K4/K5 largest difference from plain: {err_abs:.3e} "
+        f"(absolute), {err_rel:.3e} of its entry's scale")
+    _k45_sharp(real, cfg)
+
+    surf, corner, t_rn, t_qbn = real
+    max_d2 = cfg.nearest_feature_search_sq_dist
+    pose = assoc.pose_scalars(t_rn, t_qbn, "ieskf")
+    entries = []
+    for k, (kind, pair) in enumerate(((assoc.SURF, surf),
+                                      (assoc.CORNER, corner))):
+        sets = (pair, None) if k == 0 else (None, pair)
+        ms = device_ms(lambda: assoc.launch(*sets, pose, "ieskf", True,
+                                            max_d2, cfg.lidar_scale), 200)
+        plain_ms = cuda_ms(lambda: assoc._plain(kind, *pair, pose, "ieskf",
+                                                True, max_d2,
+                                                cfg.lidar_scale), 5)
+        bytes_moved, ops = _k45_work(kind, pair, pose, max_d2)
+        bound_ms, bound_by = bound(bytes_moved, ops)
+        log(f"  K{4 + k} {kind} ({pair[0].xyz.shape[0]} x "
+            f"{pair[1].xyz.shape[0]}, the real VLP-16 trip, weighted): "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+            f"{bound_ms:.5f} ms ({bound_by}; {bytes_moved} B, {ops} ops)")
+        entries.append(dict(
+            name=f"{kind}_normal_equations", route="cuda",
+            source="lins_tpu_torch/csrc/assoc_normal_equations.cu",
+            replaces=f"attic/pallas_assoc.py:{293 if k == 0 else 310}",
+            launches=None, max_abs_err=err_abs, ms=ms, plain_ms=plain_ms,
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=None))
+    def pair():
+        return assoc.launch(surf, corner, pose, "ieskf", True, max_d2,
+                            cfg.lidar_scale)
+
+    pair_ms, paced_ms = device_ms(pair, 200), cuda_ms(pair, 200)
+    trip_ms = cuda_ms(lambda: assoc.scan_normal_equations(
+        surf[0], corner[0], surf[1], corner[1], t_rn, t_qbn, 1, cfg,
+        "ieskf"), 200)
+    log(f"  K4 + K5 in one launch (as the odometry's trips take them): "
+        f"{pair_ms:.4f} ms on the card; {paced_ms:.4f} ms a call paced by "
+        f"the host's enqueue; a whole trip's entry (pose scalars + launch) "
+        f"{trip_ms:.4f} ms")
+    return entries
+
+
 def warm_odometry(cfg, data, n_scans):
     """A LinsOdometry on the card fed scans 0..n_scans-1 through add_scan,
     with the IMU up to each; returns it and the next IMU index."""
@@ -792,18 +1094,21 @@ def warm_odometry(cfg, data, n_scans):
 
 
 def _reset_counts():
-    from lins_tpu_torch.ops import label, select
+    from lins_tpu_torch.ops import assoc, label, select
 
     for fn in (label.label_components, label._label_blocked,
-               select.select_candidates, select.topk_smallest):
+               select.select_candidates, select.topk_smallest,
+               assoc.surf_normal_equations, assoc.corner_normal_equations):
         fn.launches = 0
     for fn in (label.label_components_plain, label.label_blocked_plain,
-               select.select_candidates_plain, select.topk_smallest_plain):
+               select.select_candidates_plain, select.topk_smallest_plain,
+               assoc.surf_normal_equations_plain,
+               assoc.corner_normal_equations_plain):
         fn.calls = 0
 
 
 def _counts():
-    from lins_tpu_torch.ops import label, select
+    from lins_tpu_torch.ops import assoc, label, select
 
     return dict(label=label.label_components.launches,
                 label_blocked=label._label_blocked.launches,
@@ -811,7 +1116,24 @@ def _counts():
                 label_blocked_plain=label.label_blocked_plain.calls,
                 select=select.select_candidates.launches,
                 select_plain=select.select_candidates_plain.calls,
-                topk=select.topk_smallest.launches)
+                topk=select.topk_smallest.launches,
+                k4=assoc.surf_normal_equations.launches,
+                k5=assoc.corner_normal_equations.launches,
+                k4_plain=assoc.surf_normal_equations_plain.calls,
+                k5_plain=assoc.corner_normal_equations_plain.calls)
+
+
+def check_assoc(counts, cfg, n_scans):
+    """K4 and K5 took every trip of the run's RUNNING scans: at least the
+    IESKF's and the GN fallback's num_iter trips each (on the card every
+    trip runs and the fallback is computed every scan), and no plain
+    association ran."""
+    need = 2 * cfg.num_iter * (n_scans - 2)
+    check(counts["k4"] >= need and counts["k5"] >= need,
+          f"K4 launched {counts['k4']} and K5 {counts['k5']} times >= "
+          f"{need} (2 x {cfg.num_iter} trips x {n_scans - 2} RUNNING scans)")
+    check(counts["k4_plain"] == 0 and counts["k5_plain"] == 0,
+          "no plain association on the card")
 
 
 def replay(slam, data, n_scans=None):
@@ -933,6 +1255,7 @@ def phase_odometry(cfg, data):
           f"K1 launched {counts['label']} times >= {n_chunks} chunks")
     check(counts["label_plain"] == 0 and counts["label_blocked"] == 0,
           "no plain labelling and no K2 at 16 rows")
+    check_assoc(counts, cfg, N_SCANS)
     check(bool(np.isfinite(ps).all() and np.isfinite(qs).all()),
           "every pose finite")
     err = ate(ps, data["gt_pos"][1:1 + len(ps)], align=True)
@@ -963,6 +1286,7 @@ def phase_mapping(cfg, data, odo_ps):
     check(counts["select_plain"] == 0, "no plain selection on the card")
     check(counts["label"] > 0 and counts["label_plain"] == 0,
           f"K1 launched {counts['label']} times, no plain labelling")
+    check_assoc(counts, cfg, N_SCANS_WINDOW)
     check(bool(np.isfinite(ps).all() and np.isfinite(qs).all()),
           "every fused pose finite")
     gt = data["gt_pos"][1:1 + len(ps)]
@@ -994,6 +1318,7 @@ def phase_path_v(cfg, data):
           "K3 launched in every attempt (the polish, computed and selected)")
     check(counts["select_plain"] == 0 and counts["label_plain"] == 0,
           "no plain selection or labelling on the card")
+    check_assoc(counts, cfg, N_SCANS)
     check(bool(np.isfinite(ps).all() and np.isfinite(qs).all()),
           "every fused pose finite")
     err = ate(ps, data["gt_pos"][1:1 + len(ps)], align=True)
@@ -1028,6 +1353,7 @@ def phase_path_h(cfg, data):
     check(counts["label"] == 0 and counts["label_plain"] == 0
           and counts["label_blocked_plain"] == 0,
           "no K1 and no plain labelling at 64 rows")
+    check_assoc(counts, cfg, N_SCANS_H)
     check(counts["select"] > 0 and all(n >= 1 for n in in_loops)
           and counts["select_plain"] == 0,
           f"K3 launched {counts['select']} times, in every loop attempt, "
@@ -1325,6 +1651,7 @@ def main():
     k2 = phase_k2(cfg_h, data_h)
     k3_err = phase_k3_synthetic(cfg_map.s2m_cand)
     k6 = phase_k6()
+    k4, k5 = phase_k45(cfg, data, cfg_h, data_h)
     odo = phase_odometry(cfg, data)
     mp = phase_mapping(cfg_map, data, odo["ps"])
     k3 = phase_k3_real(mp["slam"])
@@ -1340,9 +1667,12 @@ def main():
     # K6 is the canary's kernel, off every main path: its count must stay 0
     # until a path calls it
     k6["launches"] = sum(r["counts"]["topk"] for r in runs.values())
+    k4["launches"] = sum(r["counts"]["k4"] for r in runs.values())
+    k5["launches"] = sum(r["counts"]["k5"] for r in runs.values())
     log("  launches per run: " + "; ".join(
         f"{name} K1 {r['counts']['label']} K2 {r['counts']['label_blocked']}"
-        f" K3 {r['counts']['select']} K6 {r['counts']['topk']}"
+        f" K3 {r['counts']['select']} K4 {r['counts']['k4']} K5 "
+        f"{r['counts']['k5']} K6 {r['counts']['topk']}"
         for name, r in runs.items()))
     check(k6["launches"] == 0, "K6 launched 0 times on the main paths")
     attempt, solve, attempt_out, solved = phase_profiles(
@@ -1369,7 +1699,7 @@ def main():
         f"solve {solve['launches']} launches, busy {solve['busy_ms']:.3f} ms,"
         f" idle share {_idle(solve):.4f}")
     log(f"    script {time.perf_counter() - t_start:.1f} s")
-    kernels = [k1, k2, k3, k6]
+    kernels = [k1, k2, k3, k4, k5, k6]
     for k in kernels:
         for key in ("ms", "plain_ms", "bound_ms"):
             if not math.isfinite(k[key]):

@@ -25,6 +25,7 @@ from lins_tpu_torch.imu import eskf
 from lins_tpu_torch.imu import preintegration as pre
 from lins_tpu_torch.odometry import association as assoc
 from lins_tpu_torch.odometry import gn_icp, ieskf
+from lins_tpu_torch.ops import assoc as assoc_k
 from lins_tpu_torch.ops.label import label_components
 from lins_tpu_torch.utils.device import resolve_device, resolve_dtype
 from lins_tpu_torch.utils.lazy import ChunkMetrics, LazyRows, to_numpy
@@ -92,9 +93,11 @@ def running_step_impl(filter_state: eskf.FilterState,
     enough = ((torch.sum(feats.less_sharp.valid) > 5)
               & (torch.sum(feats.less_flat.valid) > 10))
 
-    # 3) iterated ESKF update
+    # 3) iterated ESKF update; the reference sets are packed for K4/K5
+    #    once, for it and the fallback
+    refs = assoc_k.reference_sets(last_surf, last_corner, dtype)
     res = ieskf.update(fs, feats.flat, feats.sharp, last_surf, last_corner,
-                       cfg)
+                       cfg, refs=refs)
 
     # 4) divergence fallback: GN ICP from the propagated pose
     #    (StateEstimator.hpp:585-592).  On the card it is computed every
@@ -103,7 +106,7 @@ def running_step_impl(filter_state: eskf.FilterState,
     if res.diverged.device.type != "cpu" or bool(res.diverged):
         rn, qbn, _ = gn_icp.estimate_transform(
             fs.rn, fs.qbn, feats.flat, feats.sharp, last_surf, last_corner,
-            cfg)
+            cfg, refs=refs)
         upd = tree_where(res.diverged,
                          res.state._replace(rn=rn, qbn=qbn, P=fs.P), upd)
     # if not enough features, skip the measurement update entirely

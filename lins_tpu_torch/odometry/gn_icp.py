@@ -14,8 +14,7 @@ import torch
 
 from lins_tpu_torch.config import SlamConfig
 from lins_tpu_torch.geom import so3
-from lins_tpu_torch.odometry import association as assoc
-from lins_tpu_torch.odometry.ieskf import match_sets
+from lins_tpu_torch.ops import assoc
 from lins_tpu_torch.utils.device import may_stop
 
 # Newton steps of the matrix sign iteration in `spectral_projector`: each
@@ -42,24 +41,11 @@ def spectral_projector(A, thresh: float):
     return 0.5 * (eye + X)
 
 
-def gn_step(rn, qbn, m: assoc.Matches, rel_time, iter_count: int, proj, cfg,
-            dtype):
-    """One GN iteration.  Returns (rn, qbn, converged, proj)."""
-    coeff = torch.where(m.valid[:, None], m.coeff, 0.0).to(dtype)
-    res = torch.where(m.valid, m.resid, 0.0).to(dtype)
-    pt = m.point.to(dtype)
-
-    phi = so3.log_quat(qbn)
-    q_s = so3.exp_axis(rel_time[:, None].to(dtype) * phi[None, :])
-    R_s = so3.quat_to_mat(q_s)                                 # (M,3,3)
-    RS = -torch.einsum("nij,njk->nik", R_s, so3.skew(pt))      # (M,3,3)
-    J_rot = torch.einsum("ni,nij->nj", coeff, RS)              # (M,3)
-    J6 = torch.cat([J_rot, coeff], dim=-1)                     # (M,6)
-    b = -0.05 * res                                             # (M,)
-
-    JtJ = J6.T @ J6
-    Jtb = J6.T @ b
-    eye6 = torch.eye(6, dtype=dtype, device=JtJ.device)
+def gn_step(rn, qbn, JtJ, Jtb, iter_count: int, proj):
+    """One GN iteration from the trip's normal equations (JtJ, Jtb), J6's
+    rows [J_rot, coeff] and b = -0.05·s·res as K4 and K5 form them
+    ("gn" rows).  Returns (rn, qbn, converged, proj)."""
+    eye6 = torch.eye(6, dtype=JtJ.dtype, device=JtJ.device)
     x = torch.linalg.solve_ex(JtJ + 1e-12 * eye6, Jtb)[0]
 
     # degeneracy projection, built on the first iteration
@@ -79,29 +65,35 @@ def gn_step(rn, qbn, m: assoc.Matches, rel_time, iter_count: int, proj, cfg,
 
 
 def estimate_transform(rn0, qbn0, new_flat, new_sharp, last_surf, last_corner,
-                       cfg: SlamConfig):
+                       cfg: SlamConfig, refs=None):
     """Full GN ICP loop (estimateTransform, StateEstimator.hpp:1163-1196).
 
     Iterates association + GN step up to num_iter times; skips the solve when
     matches are insufficient (<10 surf or <5 corner), like the reference.
+    Each trip's (JtJ, Jtb) and match counts come from K4 and K5
+    (`ops/assoc.scan_normal_equations`, "gn" rows).  `refs`: the reference
+    sets as `ops/assoc.reference_sets` made them, when the caller has.
     Returns (rn, qbn, iters).
     """
     dtype, dev = rn0.dtype, rn0.device
+    flat, sharp = assoc.queries(new_flat, dtype), assoc.queries(new_sharp,
+                                                                 dtype)
+    if refs is None:
+        refs = assoc.reference_sets(last_surf, last_corner, dtype)
     rn, qbn = rn0, qbn0
     proj = torch.eye(6, dtype=dtype, device=dev)
     iters = torch.zeros((), dtype=torch.int32, device=dev)
     active = torch.ones((), dtype=torch.bool, device=dev)
-    rel = torch.cat([new_flat.rel_time, new_sharp.rel_time])
 
     for it in range(cfg.num_iter):
         if may_stop(active):
             break
-        surf, corn = match_sets(new_flat, new_sharp, last_surf, last_corner,
-                                rn, qbn, it, cfg, dtype)
-        enough = (torch.sum(surf.valid) >= 10) & (torch.sum(corn.valid) >= 5)
+        (JtJ_s, Jtb_s, _, n_s), (JtJ_c, Jtb_c, _, n_c) = (
+            assoc.scan_normal_equations(flat, sharp, *refs, rn, qbn, it, cfg,
+                                        "gn"))
+        enough = (n_s >= 10) & (n_c >= 5)
         rn_n, qbn_n, conv_n, proj_n = gn_step(
-            rn, qbn, assoc.stack_matches(surf, corn), rel, it, proj, cfg,
-            dtype)
+            rn, qbn, JtJ_s + JtJ_c, Jtb_s + Jtb_c, it, proj)
         step = active & enough
         rn = torch.where(step, rn_n, rn)
         qbn = torch.where(step, qbn_n, qbn)

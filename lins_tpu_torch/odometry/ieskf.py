@@ -19,9 +19,8 @@ from typing import NamedTuple
 import torch
 
 from lins_tpu_torch.config import SlamConfig
-from lins_tpu_torch.geom import so3
 from lins_tpu_torch.imu import eskf
-from lins_tpu_torch.odometry import association as assoc
+from lins_tpu_torch.ops import assoc
 from lins_tpu_torch.utils.device import may_stop
 from lins_tpu_torch.utils.tree import tree_where
 
@@ -65,56 +64,27 @@ def _spd_inverse(A, jitter_scale):
     return torch.cholesky_solve(eye, L)
 
 
-def _measurement_blocks(m: assoc.Matches, lin_qbn, cfg, dtype):
-    """Compressed normal-equation blocks from stacked matches.
-
-    Rows: H_att = coeffᵀ(−R·skew(p))·Rinvleft(−φ), H_pos = coeffᵀ
-    (StateEstimator.hpp:515-532).  Returns (JtJ (6,6), Jtr (6,), res_norm).
-    """
-    axis = so3.log_quat(lin_qbn)
-    R = so3.quat_to_mat(lin_qbn)
-    Rinv = so3.rinv_left(-axis)
-
-    pt = m.point.to(dtype)
-    coeff = torch.where(m.valid[:, None], m.coeff, 0.0).to(dtype)
-    res = torch.where(m.valid, cfg.lidar_scale * m.resid, 0.0).to(dtype)
-
-    RS = -torch.einsum("ij,njk->nik", R, so3.skew(pt))      # (M,3,3)
-    RSJ = torch.einsum("nik,kj->nij", RS, Rinv)             # (M,3,3)
-    H_att = torch.einsum("ni,nij->nj", coeff, RSJ)          # (M,3)
-    J6 = torch.cat([H_att, coeff], dim=-1)                  # (M,6)
-
-    JtJ = J6.T @ J6
-    Jtr = J6.T @ res
-    res_norm = torch.sqrt(torch.sum(res * res))
-    return JtJ, Jtr, res_norm
-
-
-def match_sets(new_flat, new_sharp, last_surf, last_corner, rn, qbn,
-               it: int, cfg, dtype):
-    """Surf and corner matches of a scan's query features against the
-    previous scan's reference sets at the linearisation pose (rn, qbn)."""
-    surf = assoc.find_surf_matches(
-        new_flat.xyz.to(dtype), new_flat.rel_time.to(dtype),
-        new_flat.valid, last_surf["xyz"].to(dtype), last_surf["ring"],
-        last_surf["valid"], rn, qbn, it, cfg)
-    corn = assoc.find_corner_matches(
-        new_sharp.xyz.to(dtype), new_sharp.rel_time.to(dtype),
-        new_sharp.valid, last_corner["xyz"].to(dtype), last_corner["ring"],
-        last_corner["valid"], rn, qbn, it, cfg)
-    return surf, corn
-
-
 def update(filter_state: eskf.FilterState,
            new_flat, new_sharp, last_surf, last_corner,
-           cfg: SlamConfig) -> IESKFResult:
+           cfg: SlamConfig, refs=None) -> IESKFResult:
     """Run the iterated update against the previous scan's feature sets.
 
     new_flat/new_sharp: FeatureClouds of the current scan (query sets).
     last_surf/last_corner: dicts with xyz (R,3), ring (R,), valid (R,) — the
-    previous scan's less-flat / less-sharp sets in its end frame.
+    previous scan's less-flat / less-sharp sets in its end frame.  `refs`:
+    the two as `ops/assoc.reference_sets` made them, when the caller has.
+
+    Each trip's normal equations come from K4 and K5
+    (`ops/assoc.scan_normal_equations`, "ieskf" rows): JtJ and Jtr are the
+    sums of the surf and corner blocks and the residual norm is
+    sqrt(Σr²_surf + Σr²_corner), as `_blocks_xla` of the reference package
+    forms them.
     """
     dtype, dev = filter_state.rn.dtype, filter_state.rn.device
+    flat, sharp = assoc.queries(new_flat, dtype), assoc.queries(new_sharp,
+                                                                 dtype)
+    if refs is None:
+        refs = assoc.reference_sets(last_surf, last_corner, dtype)
     Pk = filter_state.P
     # a product with 1/σ², as XLA folds the reference's division by σ²
     inv_sigma2 = 1.0 / cfg.lidar_std ** 2
@@ -138,10 +108,11 @@ def update(filter_state: eskf.FilterState,
     for it in range(cfg.num_iter):
         if may_stop(active):
             break
-        surf, corn = match_sets(new_flat, new_sharp, last_surf, last_corner,
-                                lin.rn, lin.qbn, it, cfg, dtype)
-        JtJ, Jtr, res_norm = _measurement_blocks(
-            assoc.stack_matches(surf, corn), lin.qbn, cfg, dtype)
+        (JtJ_s, Jtr_s, rsq_s, ns_new), (JtJ_c, Jtr_c, rsq_c, nc_new) = (
+            assoc.scan_normal_equations(flat, sharp, *refs, lin.rn, lin.qbn,
+                                        it, cfg, "ieskf"))
+        JtJ, Jtr = JtJ_s + JtJ_c, Jtr_s + Jtr_c
+        res_norm = torch.sqrt(rsq_s + rsq_c)
         HtH_s_new = _embed6(JtJ) * inv_sigma2
         Htr_s = _embed6v(Jtr) * inv_sigma2
 
@@ -166,8 +137,8 @@ def update(filter_state: eskf.FilterState,
         res_prev = torch.where(keep, res_prev, res_norm)
         lin = tree_where(active, lin_new, lin)
         div = div | (active & div_new)
-        ns = torch.where(active, torch.sum(surf.valid).to(torch.int32), ns)
-        nc = torch.where(active, torch.sum(corn.valid).to(torch.int32), nc)
+        ns = torch.where(active, ns_new, ns)
+        nc = torch.where(active, nc_new, nc)
         res_norm_out = torch.where(active, res_norm, res_norm_out)
         iters = iters + active.to(torch.int32)
         active = active & ~conv_new & ~div_new

@@ -18,7 +18,8 @@ import tempfile
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "_build")
-KERNELS = ("label_components", "label_blocked", "select_candidates")
+KERNELS = ("label_components", "label_blocked", "select_candidates",
+           "assoc_normal_equations")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -90,3 +91,18 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(library_path(name))
         _loaded[name] = lib
     return lib
+
+
+def require(name, arg, t, dtype, shape, device):
+    """Raise unless tensor `t` (argument `arg` of kernel wrapper `name`)
+    lies on `device` with `dtype`, `shape` and a contiguous layout: what a
+    kernel reading raw pointers takes."""
+    if t.device != device:
+        raise ValueError(f"{name}: {arg} on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: {arg} is {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: {arg} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: {arg} is not contiguous")

@@ -31,6 +31,8 @@ import ctypes
 
 import torch
 
+from lins_tpu_torch.ops.build import require as _require
+
 # "infinity" that survives arithmetic without NaN risk (the reference's)
 _BIG = 3.0e38
 # squared distance above which a candidate is a parked tombstone
@@ -116,18 +118,6 @@ def _lib():
         lib.topk_smallest_launch.restype = ctypes.c_int
         _LIB.append(lib)
     return _LIB[0]
-
-
-def _require(name, arg, t, dtype, shape, device):
-    if t.device != device:
-        raise ValueError(f"{name}: {arg} on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name}: {arg} is {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: {arg} has shape {tuple(t.shape)}, "
-                         f"expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: {arg} is not contiguous")
 
 
 def select_candidates(query, q_valid, cand, ok, C: int,

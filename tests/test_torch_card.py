@@ -10,7 +10,7 @@ import pytest
 import torch
 
 from lins_tpu_torch.config import TINY
-from lins_tpu_torch.ops import label, select
+from lins_tpu_torch.ops import assoc, label, select
 
 
 @pytest.fixture
@@ -285,3 +285,123 @@ def test_loop_replay_on_card(cuda_device):
         data, n_scans=26, chunk=12)
     _, pc, _ = cpu.trajectory_arrays()
     np.testing.assert_allclose(pg[:len(pc)], pc, rtol=0, atol=0.05)
+
+
+def _assoc_sets(device, seed, lattice=False, shapes=((96, 700), (40, 300))):
+    """Random K4 and K5 sets on the card: queries in a 40 m box, references
+    about them on 16 rings, about 10% of each invalid (their coordinates
+    NaN); `lattice` puts every coordinate on a 0.25 m lattice with no
+    de-skew time, so distances tie exactly."""
+    rng = np.random.default_rng(seed)
+    sets = []
+    for Q, R in shapes:
+        q = rng.uniform(-20, 20, (Q, 3)) * np.asarray([1.0, 1.0, 0.2])
+        about = q if Q else rng.uniform(-20, 20, (1, 3))
+        r = about[rng.integers(0, len(about), R)] + rng.normal(0, 0.6, (R, 3))
+        rel = rng.uniform(0, 1, Q)
+        if lattice:
+            q, r, rel = np.round(q * 4) / 4, np.round(r * 4) / 4, 0 * rel
+        qv, rv = rng.random(Q) < 0.9, rng.random(R) < 0.9
+        q[~qv], r[~rv] = np.nan, np.nan
+
+        def t(a, dt=torch.float32):
+            return torch.as_tensor(a).to(device=device, dtype=dt)
+
+        sets.append((assoc.Queries(t(q), t(rel), t(qv, torch.bool)),
+                     assoc.references(t(r), t(rng.integers(0, 16, R),
+                                              torch.int32),
+                                      t(rv, torch.bool))))
+    return sets
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lattice", [False, True])
+@pytest.mark.parametrize("form", ["ieskf", "gn"])
+def test_assoc_kernel_matches_plain(cuda_device, form, lattice):
+    """K4 and K5 in one launch against their plain versions: counts equal,
+    each entry (a, b) of the Gram of [J6 | r] (JtJ, Jtr, Σr²) within
+    2·Q·2⁻²⁴ of its own scale sqrt(G_aa·G_bb), by Cauchy-Schwarz a bound of
+    its sum of |terms| (two float32 sums of Q rows in different orders;
+    chip_smoke.py K45_TOL)."""
+    surf, corner = _assoc_sets(cuda_device, 3 + lattice, lattice)
+    rn = torch.tensor([0.2, -0.1, 0.03], device=cuda_device)
+    qbn = torch.tensor([0.999, 0.012, -0.02, 0.03], device=cuda_device)
+    qbn = qbn / torch.linalg.vector_norm(qbn)
+    pose = assoc.pose_scalars(rn, qbn, form)
+    scale = 1.0 if form == "ieskf" else assoc.GN_RES_SCALE
+    kept = 0
+    for weighted in (False, True):
+        before = (assoc.surf_normal_equations.launches,
+                  assoc.corner_normal_equations.launches)
+        got = assoc.launch(surf, corner, pose, form, weighted, 25.0, scale)
+        assert (assoc.surf_normal_equations.launches,
+                assoc.corner_normal_equations.launches) == (
+                    before[0] + 1, before[1] + 1)
+        for k, (kind, pair) in enumerate(((assoc.SURF, surf),
+                                          (assoc.CORNER, corner))):
+            want = assoc._plain(kind, *pair, pose, form, weighted, 25.0,
+                                scale)
+            assert int(got[k][3]) == int(want[3])
+            kept += int(want[3])
+            g, w = _gram(got[k]), _gram(want)
+            assert torch.isfinite(g).all()
+            d = w.diagonal().clamp(min=0.0)
+            tol = 2 * pair[0].xyz.shape[0] * 2.0 ** -24 * torch.sqrt(
+                d[:, None] * d[None, :])
+            assert bool(((g - w).abs() <= tol).all())
+    assert kept > 20
+
+
+def _gram(blocks):
+    """The (7, 7) float64 Gram of [J6 | r] from (JtJ, Jtr, Σr², n)."""
+    G = torch.zeros((7, 7), dtype=torch.float64)
+    G[:6, :6] = blocks[0].double().cpu()
+    G[:6, 6] = G[6, :6] = blocks[1].double().cpu()
+    G[6, 6] = blocks[2].double().cpu()
+    return G
+
+
+@pytest.mark.cuda
+def test_assoc_wrappers_and_empty_sets(cuda_device):
+    """The attic-named wrappers launch one set each; an empty query set
+    gives zeros; float64 on the card is refused."""
+    (sq, sr), (cq, cr) = _assoc_sets(cuda_device, 5,
+                                     shapes=((64, 500), (0, 200)))
+    rn = torch.zeros(3, device=cuda_device)
+    qbn = torch.tensor([1.0, 0.0, 0.0, 0.0], device=cuda_device)
+    args = (sq.xyz, sq.rel, sq.valid, sr.xyz, sr.ring, sr.valid, rn, qbn, 2)
+    before = assoc.surf_normal_equations.launches
+    got = assoc.surf_normal_equations(*args)
+    assert assoc.surf_normal_equations.launches == before + 1
+    want = assoc.surf_normal_equations_plain(*args)
+    assert int(got[3]) == int(want[3]) > 0
+    before = assoc.corner_normal_equations.launches
+    empty = assoc.corner_normal_equations(cq.xyz, cq.rel, cq.valid, cr.xyz,
+                                          cr.ring, cr.valid, rn, qbn, 2)
+    assert assoc.corner_normal_equations.launches == before
+    assert int(empty[3]) == 0 and float(empty[0].abs().max()) == 0.0
+    with pytest.raises(TypeError, match="float32"):
+        assoc.surf_normal_equations(sq.xyz.double(), sq.rel.double(),
+                                    sq.valid, sr.xyz.double(), sr.ring,
+                                    sr.valid, rn.double(), qbn.double(), 2)
+
+
+@pytest.mark.cuda
+def test_odometry_association_runs_through_k4_k5(cuda_device):
+    """A card replay takes every trip's normal equations from K4 and K5
+    (IESKF and GN fallback trips of each RUNNING scan), with no plain
+    association."""
+    from lins_tpu_torch.slam import LinsSlam
+
+    cfg = TINY.replace(use_pallas=True)
+    data = _sequence(cuda_device)
+    before = (assoc.surf_normal_equations.launches,
+              assoc.corner_normal_equations.launches,
+              assoc.surf_normal_equations_plain.calls,
+              assoc.corner_normal_equations_plain.calls)
+    LinsSlam(cfg, enable_mapping=False).run_replay(data, chunk=6)
+    need = 2 * cfg.num_iter * (8 - 2)
+    assert assoc.surf_normal_equations.launches - before[0] >= need
+    assert assoc.corner_normal_equations.launches - before[1] >= need
+    assert assoc.surf_normal_equations_plain.calls == before[2]
+    assert assoc.corner_normal_equations_plain.calls == before[3]
