@@ -14,12 +14,19 @@ Phases, in order; any failure exits non-zero:
                  wrap cases, empty and full grids, a 64x1024 OS1-64 grid and
                  a real HDL-64 chunk; K3 on random gathered blocks with
                  ties, tombstones, invalid rows and short rows at the
-                 mapping shapes and the loop polish's; K6 on the canary's shapes (and against
-                 torch.topk); K4 and K5 at the odometry's shapes (512 x 6144
-                 and 192 x 2048) in both row forms and weight states, on
-                 random clouds with exact ties, invalid rows with NaN
-                 coordinates, empty sets and far queries, and on the real
-                 trip inputs of one RUNNING VLP-16 scan and one HDL-64 scan
+                 mapping shapes and the loop polish's; K6 on the canary's
+                 shapes and on rows of 1000, rows of one value, signed
+                 zeros and infinities, a lattice of ties and the longest
+                 rows, C from 1 to B (bit for bit against its plain
+                 version, and against torch.topk's values), faster than
+                 torch.topk at (6144, 1728); K4 and K5 at the odometry's
+                 shapes (512 x 6144 and 192 x 2048) in both row forms and
+                 weight states, on random clouds with exact ties, invalid
+                 rows with NaN coordinates, empty sets, far queries,
+                 references on two or five rings, on the first and last
+                 rings (the +-2 window clipped), on one ring and a single
+                 valid reference, and on the real trip inputs of one
+                 RUNNING VLP-16 scan and one HDL-64 scan
   4. odometry    LinsSlam(VLP16, max_points=28800, use_pallas=True,
                  enable_mapping=False).run_replay over a synthetic gentle
                  sequence (6 + 4x32 scans at 1.5 m/s): label launches,
@@ -118,6 +125,13 @@ SOLVE_CPU_TOL_RAD = 1e-3
 # |terms|: each of two float32 sums of up to 512 rows, in different orders,
 # errs by at most about 512 * 2^-24 of it
 K45_TOL = 2 * 512 * 2.0 ** -24
+# the previous designs' times, logged beside this run's and the pair's a
+# gate: the association kernel of one warp a query over the padded
+# reference set, and K6 of one block a row taking C minima in turn
+# (milliseconds by CUDA events, calls enqueued while the card slept, on an
+# NVIDIA H100 80GB HBM3 at 700.00 W): the K4+K5 pair on the real VLP-16
+# trip, and K6 at (6144, 1728), C = 64
+PREVIOUS_MS = {"K4+K5 pair": 0.04998, "K6": 0.36348}
 # H100 SXM published peaks (NVIDIA data sheet): HBM rate, and the float32
 # rate outside the tensor cores, used for the kernels' scalar operations
 HBM_BYTES_PER_S = 3.35e12
@@ -155,7 +169,7 @@ def device_ms(fn, reps, sleep_cycles=int(2e8)):
     """Mean milliseconds of `fn()` on the card over `reps` calls enqueued
     while the card sleeps (torch.cuda._sleep), so that the calls run back
     to back and the host's enqueue rate is not what is timed; fails when
-    the enqueue outlasted the sleep."""
+    the enqueue outlasted the sleep (a call that waits for the card)."""
     import torch
 
     fn()
@@ -777,16 +791,60 @@ def phase_k3_real(slam):
                 library_ms=tot["library_ms"])
 
 
+def _k6_equal(x, C, what):
+    """K6 on (Q, B) values `x` against its plain version, bit for bit, and
+    against torch.topk's values; returns the kernel's output."""
+    import torch
+
+    from lins_tpu_torch.ops import select
+
+    before = select.topk_smallest.launches
+    got = select.topk_smallest(x, C)
+    torch.cuda.synchronize()
+    want = select.topk_smallest_plain(x, C)
+    lib = torch.topk(x, C, dim=1, largest=False).values
+    bits = torch.equal(got.view(torch.int32), want.view(torch.int32))
+    check(select.topk_smallest.launches == before + 1 and bits
+          and torch.equal(got, lib),
+          f"K6 == plain (bit for bit) == torch.topk (values; bits "
+          f"{torch.equal(got.view(torch.int32), lib.view(torch.int32))}) on "
+          f"{what}, ({x.shape[0]}, {x.shape[1]}), C={C}")
+    return got
+
+
 def phase_k6():
-    """K6 on the canary's three shapes: equal to its plain version and to
-    torch.topk's values; times at the largest shape.  Returns its JSON
-    entry (launches filled in from the main path's runs)."""
+    """K6 on the canary's three shapes and on edge cases: bit-equal to its
+    plain version and equal to torch.topk's values; times at each of the
+    canary's shapes.  Returns its JSON entry at the largest (launches
+    filled in from the main path's runs)."""
     import torch
 
     from lins_tpu_torch.ops import select
 
     log("== 3. kernels: K6 topk_smallest")
     dev = torch.device("cuda")
+    rng = np.random.default_rng(5)
+    signed = rng.uniform(-50, 50, (256, 1000)).astype(np.float32)
+    signed[:, ::7] = 0.0
+    signed[:, 3::7] = -0.0
+    signed[0] = -0.0
+    signed[1, 500:] = np.inf
+    signed[2] = -np.inf
+    edge = (("B = 1000 (not a multiple of 32)",
+             rng.uniform(0, 100, (333, 1000)), (1, 17, 64, 999, 1000)),
+            ("negative values, +0.0 and -0.0 ties, infinities", signed,
+             (1, 5, 64, 143, 1000)),
+            ("rows of one value each", np.repeat(
+                rng.integers(-3, 4, (64, 1)).astype(np.float32), 1728, 1),
+             (1, 64, 1728)),
+            ("the longest rows the wrapper takes",
+             rng.uniform(0, 1, (40, 12032)), (1, 64, 3000, 12032)),
+            ("a 0.25 lattice (many exact ties)",
+             np.round(rng.uniform(0, 8, (512, 1728)) * 4) / 4, (1, 64, 700)))
+    for what, vals, Cs in edge:
+        x = torch.as_tensor(np.asarray(vals, np.float32), device=dev)
+        for C in Cs:
+            _k6_equal(x, C, what)
     out = None
     for Q, B, C in ((128, 256, 8), (1024, 1728, 64), (6144, 1728, 64)):
         rng = np.random.default_rng(Q)
@@ -794,37 +852,45 @@ def phase_k6():
         d2[0] = np.inf
         d2[1, ::2] = 3.0
         x = torch.as_tensor(d2, device=dev)
-        got = select.topk_smallest(x, C)
-        torch.cuda.synchronize()
+        got = _k6_equal(x, C, "the canary's values")
         want = select.topk_smallest_plain(x, C)
-        lib = torch.topk(x, C, dim=1, largest=False).values
-        check(torch.equal(got, want) and torch.equal(got, lib),
-              f"K6 == plain == torch.topk on ({Q}, {B}), C={C}")
-        ms = cuda_ms(lambda: select.topk_smallest(x, C), 50)
-        plain_ms = cuda_ms(lambda: select.topk_smallest_plain(x, C), 5)
-        library_ms = cuda_ms(
+        # the kernel and torch.topk timed alike, enqueued while the card
+        # sleeps, so that a launch shorter than its Python enqueue is not
+        # timed by the host
+        ms = device_ms(lambda: select.topk_smallest(x, C), 100)
+        library_ms = device_ms(
             lambda: torch.topk(x, C, dim=1, largest=False), 20)
+        plain_ms = cuda_ms(lambda: select.topk_smallest_plain(x, C), 5)
+        # bytes: each value read once, each output written once;
+        # operations: a key and a compare per value, the least a selection
+        # does
         bytes_moved = Q * B * 4 + Q * C * 4
-        bound_ms, bound_by = bound(bytes_moved, Q * B * C)
-        log(f"  K6 ({Q}, {B}), C={C}: kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, torch.topk {library_ms:.4f} ms, bound "
-            f"{bound_ms:.5f} ms ({bound_by})")
+        bound_ms, bound_by = bound(bytes_moved, 2 * Q * B)
+        log(f"  K6 ({Q}, {B}), C={C}: kernel {ms:.4f} ms, torch.topk "
+            f"{library_ms:.4f} ms (both enqueued while the card slept), "
+            f"plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})")
         out = dict(name="topk_smallest", route="cuda",
-                   source="lins_tpu_torch/csrc/select_candidates.cu",
+                   source="lins_tpu_torch/csrc/topk_smallest.cu",
                    replaces="tools/r4_mosaic_canary.py:24", launches=None,
                    max_abs_err=float((got - want).abs().nan_to_num().max()),
                    ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                    bound_by=bound_by, library_ms=library_ms)
+    check(out["ms"] < out["library_ms"],
+          f"K6 at (6144, 1728), C=64 faster than torch.topk: {out['ms']:.4f}"
+          f" < {out['library_ms']:.4f} ms (the previous design "
+          f"{PREVIOUS_MS['K6']:.4f} ms)")
     return out
 
 
 def _k45_case(seed, Qs, Rs, Qc, Rc, rings, lattice=False, far=False,
-              no_query=False, no_reference=False, nan_pad=False):
+              no_query=False, no_reference=False, nan_pad=False,
+              on_rings=None, one_reference=False):
     """Random surf and corner sets on the card: queries in an 80 m box,
-    references scattered about them on `rings` rings, about 10% of each
-    invalid.  `lattice`: every coordinate on a 0.25 m lattice and no
-    de-skew time, so many distances tie exactly; `far`: every query 200 m
-    off; `nan_pad`: the invalid rows' coordinates NaN."""
+    references scattered about them on `rings` rings (or on the rings of
+    `on_rings` only), about 10% of each invalid.  `lattice`: every
+    coordinate on a 0.25 m lattice and no de-skew time, so many distances
+    tie exactly; `far`: every query 200 m off; `nan_pad`: the invalid
+    rows' coordinates NaN; `one_reference`: a single valid reference."""
     import torch
 
     from lins_tpu_torch.ops import assoc
@@ -843,6 +909,11 @@ def _k45_case(seed, Qs, Rs, Qc, Rc, rings, lattice=False, far=False,
         qv, rv = rng.random(Q) < 0.9, rng.random(R) < 0.9
         qv &= not no_query
         rv &= not no_reference
+        if one_reference:
+            rv[:] = False
+            rv[R // 3] = True
+        ring = (rng.integers(0, rings, R) if on_rings is None
+                else rng.choice(np.asarray(on_rings), R))
         if nan_pad:
             q[~qv], rel[~qv], r[~rv] = np.nan, np.nan, np.nan
 
@@ -850,8 +921,7 @@ def _k45_case(seed, Qs, Rs, Qc, Rc, rings, lattice=False, far=False,
             return torch.as_tensor(a).to(device=dev, dtype=dt).contiguous()
 
         sets.append((assoc.Queries(t(q), t(rel), t(qv, torch.bool)),
-                     assoc.references(t(r), t(rng.integers(0, rings, R),
-                                              torch.int32),
+                     assoc.references(t(r), t(ring, torch.int32),
                                       t(rv, torch.bool))))
     return sets
 
@@ -859,12 +929,14 @@ def _k45_case(seed, Qs, Rs, Qc, Rc, rings, lattice=False, far=False,
 def _k45_equal(surf, corner, rn, qbn, cfg, what):
     """K4 and K5 in one launch against their plain versions on the same
     card tensors, in both row forms and weight states; returns the largest
-    absolute and scale-relative differences of the blocks."""
+    absolute and scale-relative differences of the blocks and the rows
+    each run kept."""
     import torch
 
     from lins_tpu_torch.ops import assoc
 
     err_abs = err_rel = 0.0
+    kept = []
     max_d2 = cfg.nearest_feature_search_sq_dist
     for form in ("ieskf", "gn"):
         pose = assoc.pose_scalars(rn, qbn, form)
@@ -881,12 +953,13 @@ def _k45_equal(surf, corner, rn, qbn, cfg, what):
                 e, rel, fin = k45_diff(got[k], want)
                 err_abs, err_rel = max(err_abs, e), max(err_rel, rel)
                 n_g, n_w = int(got[k][3]), int(want[3])
+                kept.append(n_w)
                 check(n_g == n_w and fin and rel <= K45_TOL,
                       f"K{4 + k} == plain on {what} ({form} rows, weighted "
                       f"{int(weighted)}): {n_g} of {pair[0].xyz.shape[0]} "
                       f"rows kept (plain {n_w}), every entry within "
                       f"{rel:.2e} of its scale (largest difference {e:.3g})")
-    return err_abs, err_rel
+    return err_abs, err_rel, kept
 
 
 def k45_diff(got, want):
@@ -968,7 +1041,8 @@ def _trip_inputs(cfg, data, k):
 def _k45_work(kind, pair, pose, max_d2):
     """(bytes, operations) of one set at these inputs.  Bytes: each input
     read once (a query's 3 coordinates, time and flag, a reference's
-    16-byte packed row, the pose) and the set's 45 output words written
+    16-byte laid-out row, the ring offsets, the pose) and the set's 45
+    output words written
     once.  Operations: 9 per (query, reference) pair whose distance the
     kernel forms (3 differences, 3 products, 2 sums, a compare): pass 1
     every valid query against every valid reference, pass 2 each query
@@ -990,7 +1064,7 @@ def _k45_work(kind, pair, pose, max_d2):
              + int(window[near].sum())
              - (int(near.sum()) if kind == assoc.SURF else 0))
     bytes_moved = (q.xyz.shape[0] * 17 + ref.xyz.shape[0] * 16
-                   + pose.numel() * 4 + 45 * 4)
+                   + ref.offsets.numel() * 4 + pose.numel() * 4 + 45 * 4)
     return bytes_moved, 9 * pairs
 
 
@@ -1019,19 +1093,37 @@ def phase_k45(cfg, data, cfg_h, data_h):
               qbn),
              ("no valid query", dict(no_query=True), rn, qbn),
              ("no valid reference", dict(no_reference=True), rn, qbn),
-             ("every query beyond max_d2", dict(far=True), rn, qbn))
+             ("every query beyond max_d2", dict(far=True), rn, qbn),
+             ("references on two neighbouring rings", dict(on_rings=(7, 8)),
+              rn, qbn),
+             ("references on five rings, each end ring two rings from its "
+              "only neighbour, the middle one alone (the +-2 window clipped "
+              "at ring 0)", dict(on_rings=(0, 2, 7, cfg.line_num - 3,
+                                           cfg.line_num - 1)), rn, qbn),
+             ("references on the first two and last two rings",
+              dict(on_rings=(0, 1, cfg.line_num - 2, cfg.line_num - 1)), rn,
+              qbn),
+             ("references on the layout's last rings (253-255)",
+              dict(on_rings=(253, 254, 255)), rn, qbn),
+             ("one valid ring", dict(on_rings=(5,)), rn, qbn),
+             ("a single valid reference", dict(one_reference=True), rn,
+              qbn))
     for seed, (what, kw, c_rn, c_qbn) in enumerate(cases):
         surf, corner = _k45_case(seed, Qs, Rs, Qc, Rc, cfg.line_num, **kw)
         e = _k45_equal(surf, corner, c_rn, c_qbn, cfg,
                        f"{what} ({Qs}x{Rs}, {Qc}x{Rc})")
         err_abs, err_rel = max(err_abs, e[0]), max(err_rel, e[1])
+        if len(kw.get("on_rings", ())) > 1:
+            check(min(e[2]) > 0, f"{what}: each set keeps rows in every "
+                  f"form (least {min(e[2])})")
+    trips = {}
     for name, c, d in (("VLP-16", cfg, data), ("HDL-64", cfg_h, data_h)):
         surf, corner, t_rn, t_qbn = _trip_inputs(c, d, WARMUP_SCANS - 1)
         e = _k45_equal(surf, corner, t_rn, t_qbn, c,
                        f"the real trip inputs of a RUNNING {name} scan")
         err_abs, err_rel = max(err_abs, e[0]), max(err_rel, e[1])
-        if name == "VLP-16":
-            real = (surf, corner, t_rn, t_qbn)
+        trips[name] = (surf, corner, t_rn, t_qbn)
+    real = trips["VLP-16"]
     log(f"  K4/K5 largest difference from plain: {err_abs:.3e} "
         f"(absolute), {err_rel:.3e} of its entry's scale")
     _k45_sharp(real, cfg)
@@ -1065,6 +1157,12 @@ def phase_k45(cfg, data, cfg_h, data_h):
                             cfg.lidar_scale)
 
     pair_ms, paced_ms = device_ms(pair, 200), cuda_ms(pair, 200)
+    h_surf, h_corner, h_rn, h_qbn = trips["HDL-64"]
+    h_pose = assoc.pose_scalars(h_rn, h_qbn, "ieskf")
+    h_ms = device_ms(lambda: assoc.launch(
+        h_surf, h_corner, h_pose, "ieskf", True,
+        cfg_h.nearest_feature_search_sq_dist, cfg_h.lidar_scale), 200)
+    log(f"  K4 + K5 on the real HDL-64 trip: {h_ms:.4f} ms on the card")
     trip_ms = cuda_ms(lambda: assoc.scan_normal_equations(
         surf[0], corner[0], surf[1], corner[1], t_rn, t_qbn, 1, cfg,
         "ieskf"), 200)
@@ -1072,6 +1170,9 @@ def phase_k45(cfg, data, cfg_h, data_h):
         f"{pair_ms:.4f} ms on the card; {paced_ms:.4f} ms a call paced by "
         f"the host's enqueue; a whole trip's entry (pose scalars + launch) "
         f"{trip_ms:.4f} ms")
+    check(pair_ms < PREVIOUS_MS["K4+K5 pair"],
+          f"K4 + K5 on the real VLP-16 trip faster than the previous design: "
+          f"{pair_ms:.4f} < {PREVIOUS_MS['K4+K5 pair']:.4f} ms")
     return entries
 
 

@@ -1,5 +1,4 @@
-// Nearest-C candidate selection of the scan-to-map gather (kernel K3), and
-// its values-only form (kernel K6).
+// Nearest-C candidate selection of the scan-to-map gather (kernel K3).
 //
 // K3 replaces the TPU kernel lins_tpu/ops/pallas_select.py::select_candidates
 // (body _select_kernel).  Per query row q:
@@ -16,10 +15,6 @@
 //   inputs  query (Q,3) f32, q_valid (Q) u8, cand (Q,nb,3,cap) f32,
 //           ok (Q,nb*cap) u8
 //   outputs out_d2 (Q,R) f32, out_xyz (Q,R,3) f32
-//
-// K6 replaces tools/r4_mosaic_canary.py::kernel_probe (body topk_kernel):
-// the R smallest values of each row of a (Q,B) f32 block, ascending.  It is
-// the same selection loop with the values read as they are.
 //
 // Design.  One block of 256 threads per row.  Floats are mapped to uint32
 // keys that order as the floats do (sign bit flipped, negatives inverted),
@@ -73,9 +68,6 @@ __device__ __forceinline__ unsigned long long warp_min(unsigned long long v) {
   return v;
 }
 
-// kCoords: K3 (distances from the gathered block, coordinates out);
-// otherwise K6 (values of a (Q, nb*cap) block with nb = 1).
-template <bool kCoords>
 __global__ void __launch_bounds__(kThreads)
 select_rows(const float* __restrict__ query,
             const uint8_t* __restrict__ q_valid,
@@ -92,31 +84,22 @@ select_rows(const float* __restrict__ query,
   const int warp = tid >> 5;
   const size_t row = static_cast<size_t>(q) * B;
 
-  float qx = 0.f, qy = 0.f, qz = 0.f;
-  bool qv = true;
-  if (kCoords) {
-    qx = query[3 * q];
-    qy = query[3 * q + 1];
-    qz = query[3 * q + 2];
-    qv = q_valid[q] != 0;
-  }
+  const float qx = query[3 * q];
+  const float qy = query[3 * q + 1];
+  const float qz = query[3 * q + 2];
+  const bool qv = q_valid[q] != 0;
 
   unsigned long long best = ~0ull;
   for (int j = tid; j < B; j += kThreads) {
-    float v;
-    if (kCoords) {
-      const int n = j / cap;
-      const float* c = vals + (row * 3 + static_cast<size_t>(n) * 2 * cap) + j;
-      const float dx = __fsub_rn(c[0], qx);
-      const float dy = __fsub_rn(c[cap], qy);
-      const float dz = __fsub_rn(c[2 * cap], qz);
-      const float d2 = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx),
-                                           __fmul_rn(dy, dy)),
-                                 __fmul_rn(dz, dz));
-      v = (qv && ok[row + j] && d2 < kFar2) ? d2 : kBig;
-    } else {
-      v = vals[row + j];
-    }
+    const int n = j / cap;
+    const float* c = vals + (row * 3 + static_cast<size_t>(n) * 2 * cap) + j;
+    const float dx = __fsub_rn(c[0], qx);
+    const float dy = __fsub_rn(c[cap], qy);
+    const float dz = __fsub_rn(c[2 * cap], qz);
+    const float d2 = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx),
+                                         __fmul_rn(dy, dy)),
+                               __fmul_rn(dz, dz));
+    const float v = (qv && ok[row + j] && d2 < kFar2) ? d2 : kBig;
     const uint32_t k = order_key(v);
     keys[j] = k;
     const unsigned long long p = pack(k, j);
@@ -138,14 +121,12 @@ select_rows(const float* __restrict__ query,
     if (tid == 0) {
       const size_t o = static_cast<size_t>(q) * R + r;
       out_val[o] = key_value(static_cast<uint32_t>(win >> 32));
-      if (kCoords) {
-        const int n = j / cap;
-        const float* c =
-            vals + (row * 3 + static_cast<size_t>(n) * 2 * cap) + j;
-        out_xyz[3 * o] = c[0];
-        out_xyz[3 * o + 1] = c[cap];
-        out_xyz[3 * o + 2] = c[2 * cap];
-      }
+      const int n = j / cap;
+      const float* c =
+          vals + (row * 3 + static_cast<size_t>(n) * 2 * cap) + j;
+      out_xyz[3 * o] = c[0];
+      out_xyz[3 * o + 1] = c[cap];
+      out_xyz[3 * o + 2] = c[2 * cap];
     }
     if (j % kThreads == tid) {
       keys[j] = kTaken;
@@ -158,19 +139,6 @@ select_rows(const float* __restrict__ query,
   }
 }
 
-template <bool kCoords>
-int launch(const float* query, const uint8_t* q_valid, const float* vals,
-           const uint8_t* ok, int Q, int nb, int cap, int R, float* out_val,
-           float* out_xyz, void* stream) {
-  // the wrappers keep smem within the 48 KB a block may use without
-  // opting in (ops/select.py _SMEM_LIMIT)
-  const int smem = nb * cap * static_cast<int>(sizeof(uint32_t));
-  select_rows<kCoords><<<Q, kThreads, smem,
-                         static_cast<cudaStream_t>(stream)>>>(
-      query, q_valid, vals, ok, nb, cap, R, out_val, out_xyz);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
 extern "C" {
@@ -181,20 +149,14 @@ int select_candidates_launch(const void* query, const void* q_valid,
                              const void* cand, const void* ok, int Q, int nb,
                              int cap, int R, void* out_d2, void* out_xyz,
                              void* stream) {
-  return launch<true>(static_cast<const float*>(query),
-                      static_cast<const uint8_t*>(q_valid),
-                      static_cast<const float*>(cand),
-                      static_cast<const uint8_t*>(ok), Q, nb, cap, R,
-                      static_cast<float*>(out_d2),
-                      static_cast<float*>(out_xyz), stream);
-}
-
-// K6: the R smallest values of each row of a (Q, B) f32 block.
-int topk_smallest_launch(const void* d2, int Q, int B, int R, void* out,
-                         void* stream) {
-  return launch<false>(nullptr, nullptr, static_cast<const float*>(d2),
-                       nullptr, Q, 1, B, R, static_cast<float*>(out), nullptr,
-                       stream);
+  // the wrapper keeps smem within the 48 KB a block may use without
+  // opting in (ops/select.py _SMEM_LIMIT)
+  const int smem = nb * cap * static_cast<int>(sizeof(uint32_t));
+  select_rows<<<Q, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(query), static_cast<const uint8_t*>(q_valid),
+      static_cast<const float*>(cand), static_cast<const uint8_t*>(ok), nb,
+      cap, R, static_cast<float*>(out_d2), static_cast<float*>(out_xyz));
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

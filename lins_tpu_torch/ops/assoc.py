@@ -57,7 +57,11 @@ plain version's; the sums differ by float32 rounding order only.
 
 On a CUDA tensor each wrapper launches `csrc/assoc_normal_equations.cu`
 (design and bound in its header) or raises; there is no fallback, and the
-card takes float32 only.  On a CPU tensor it runs the plain version in the
+card takes float32 only.  The kernel reads each reference set in the
+layout `ring_layout` makes once a scan (valid rows in ring order, a
+ring-offset table), so pass 1 visits the valid rows only and pass 2 the
+±2 ring window only; the original index rides along, so ties still go to
+the first lowest index.  On a CPU tensor it runs the plain version in the
 input dtype (the float64 parity tests reach it so).
 `scan_normal_equations` is the odometry's entry: both sets of one trip in
 one launch.
@@ -76,12 +80,13 @@ SURF, CORNER = "surf", "corner"
 FORMS = {"ieskf": 0, "gn": 1}
 # the GN fallback's residual column: b = -0.05 * s * res (gn_icp.gn_step)
 GN_RES_SCALE = -0.05
-# ring of an invalid reference in the packed set (csrc kNoRing)
-_NO_RING = -2 ** 31
-# per-block partial sums in the kernel's scratch (csrc kPartial)
-_PARTIAL = 32
-# queries per block of the kernel (csrc kWarps: one warp per query)
-_WARPS = 4
+# rings the card's reference layout can hold (csrc kRings): a ring is the
+# low byte of each laid-out row's word
+_RINGS = 256
+# references the layout can index: the word is (index << 8 | ring) as int32
+_MAX_REFS = 2 ** 23
+# floats of each query's row in the kernel's scratch (csrc kRow)
+_ROW = 8
 
 
 class Queries(NamedTuple):
@@ -94,14 +99,14 @@ class Queries(NamedTuple):
 
 class References(NamedTuple):
     """A reference set: the previous scan's less-flat or less-sharp
-    features in its end frame.  `packed` is the card's (R, 4) float32
-    layout, (x, y, z, ring or `_NO_RING` as int32 bits), made once per
-    scan; None on the CPU."""
+    features in its end frame.  `packed` and `offsets` are the card's
+    layout of it (`ring_layout`), made once per scan; None on the CPU."""
 
     xyz: torch.Tensor     # (R, 3)
-    ring: torch.Tensor    # (R,) int
+    ring: torch.Tensor    # (R,) int, in [0, _RINGS)
     valid: torch.Tensor   # (R,) bool
-    packed: torch.Tensor | None
+    packed: torch.Tensor | None     # (R, 4) float32
+    offsets: torch.Tensor | None    # (_RINGS + 1,) int32
 
 
 def queries(fc, dtype) -> Queries:
@@ -111,16 +116,37 @@ def queries(fc, dtype) -> Queries:
                    fc.rel_time.to(dtype).contiguous(), fc.valid.contiguous())
 
 
+def ring_layout(xyz, ring, valid):
+    """The card's layout of a reference set, on the set's device with no
+    host read: (packed (R, 4) float32, offsets (_RINGS + 1,) int32).
+
+    The first offsets[_RINGS] rows of `packed` are the valid references
+    with finite coordinates, in ring order and, within a ring, in
+    ascending original index (a stable sort on the ring); each is x, y, z
+    in float32 and the word (index << 8 | ring) as int32 bits.  offsets[r]
+    is the first row of ring r.  The rows past the valid ones are the rest
+    of the set, in the same form, and are never read.  Rings lie in
+    [0, _RINGS) (every sensor preset has at most 128)."""
+    xyz = xyz.to(torch.float32)
+    ok = valid & torch.isfinite(xyz).all(dim=1)
+    key = torch.where(ok, ring.to(torch.int32), _RINGS)
+    skey, order = torch.sort(key, stable=True)
+    word = (order.to(torch.int32) << 8) | (skey & (_RINGS - 1))
+    packed = torch.cat([xyz[order], word.view(torch.float32)[:, None]],
+                       dim=1).contiguous()
+    offsets = torch.searchsorted(
+        skey, torch.arange(_RINGS + 1, dtype=torch.int32, device=xyz.device),
+        out_int32=True)
+    return packed, offsets
+
+
 def references(xyz, ring, valid) -> References:
-    """A reference set; on the card its rings and valid flags are packed
-    beside the coordinates once, outside the trip loops."""
-    packed = None
+    """A reference set; on the card it is also laid out for the kernel
+    (`ring_layout`) once, outside the trip loops."""
+    packed = offsets = None
     if xyz.device.type != "cpu":
-        code = torch.where(valid, ring.to(torch.int32), _NO_RING)
-        packed = torch.cat([xyz.to(torch.float32),
-                            code.to(torch.int32).view(torch.float32)[:, None]],
-                           dim=1).contiguous()
-    return References(xyz, ring, valid, packed)
+        packed, offsets = ring_layout(xyz, ring, valid)
+    return References(xyz, ring, valid, packed, offsets)
 
 
 def reference_sets(last_surf: dict, last_corner: dict, dtype):
@@ -353,7 +379,7 @@ _COUNTERS: dict = {}
 def _lib():
     if not _LIB:
         lib = build.load("assoc_normal_equations")
-        set_args = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
+        set_args = [ctypes.c_void_p] * 5 + [ctypes.c_int]
         lib.assoc_normal_equations_launch.argtypes = (
             set_args + set_args + [ctypes.c_void_p, ctypes.c_int,
                                    ctypes.c_int, ctypes.c_float,
@@ -370,7 +396,7 @@ def _require(arg, t, dtype, shape, device):
 def _set_args(kind, pair, dev):
     """The launcher's six arguments of one set (null and 0 when absent)."""
     if pair is None:
-        return [None] * 4 + [0, 0]
+        return [None] * 5 + [0]
     q, ref = pair
     Q, R = q.xyz.shape[0], ref.xyz.shape[0]
     f32 = torch.float32
@@ -379,10 +405,15 @@ def _set_args(kind, pair, dev):
     _require(f"{kind} query valid", q.valid, torch.bool, (Q,), dev)
     if ref.packed is None:
         raise ValueError(f"assoc_normal_equations: the {kind} reference set "
-                         f"is not packed (ops/assoc.references)")
+                         f"is not laid out (ops/assoc.references)")
+    if R >= _MAX_REFS:
+        raise ValueError(f"assoc_normal_equations: {R} {kind} references, "
+                         f"the layout indexes fewer than {_MAX_REFS}")
     _require(f"{kind} packed references", ref.packed, f32, (R, 4), dev)
+    _require(f"{kind} ring offsets", ref.offsets, torch.int32,
+             (_RINGS + 1,), dev)
     return [q.xyz.data_ptr(), q.rel.data_ptr(), q.valid.data_ptr(),
-            ref.packed.data_ptr(), Q, R]
+            ref.packed.data_ptr(), ref.offsets.data_ptr(), Q]
 
 
 def launch(surf, corner, pose, form: str, weighted: bool, max_d2: float,
@@ -401,14 +432,13 @@ def launch(surf, corner, pose, form: str, weighted: bool, max_d2: float,
         raise ValueError(f"assoc_normal_equations: unsupported device {dev}")
     _require("pose scalars", pose, torch.float32, (POSE_SIZE[form],), dev)
     args = _set_args(SURF, surf, dev) + _set_args(CORNER, corner, dev)
-    Qs, Qc = args[4], args[10]
+    Qs, Qc = args[5], args[11]
     alloc = torch.empty if Qs + Qc > 0 else torch.zeros
     out = alloc((2, 44), dtype=torch.float32, device=dev)
     out_n = alloc((2,), dtype=torch.int32, device=dev)
     if Qs + Qc > 0:
-        blocks = -(-Qs // _WARPS) + -(-Qc // _WARPS)
-        partials = torch.empty((blocks, _PARTIAL), dtype=torch.float32,
-                               device=dev)
+        rows = torch.empty((Qs + Qc, _ROW), dtype=torch.float32,
+                           device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         counter = _COUNTERS.get((dev, stream))
         if counter is None:
@@ -416,7 +446,7 @@ def launch(surf, corner, pose, form: str, weighted: bool, max_d2: float,
                 (1,), dtype=torch.int32, device=dev)
         err = _lib().assoc_normal_equations_launch(
             *args, pose.data_ptr(), FORMS[form], int(bool(weighted)),
-            float(max_d2), float(res_scale), partials.data_ptr(),
+            float(max_d2), float(res_scale), rows.data_ptr(),
             counter.data_ptr(), out.data_ptr(), out_n.data_ptr(), stream)
         if err != 0:
             raise RuntimeError(f"assoc_normal_equations kernel launch "

@@ -19,7 +19,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "_build")
 KERNELS = ("label_components", "label_blocked", "select_candidates",
-           "assoc_normal_equations")
+           "topk_smallest", "assoc_normal_equations")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 

@@ -14,11 +14,13 @@ reference's kernel path) or the C-th KEPT one (`first_dropped=False`, the
 reference's sort path).  Both are in the C+1 columns the kernel extracts.
 
 `topk_smallest` replaces `tools/r4_mosaic_canary.py::kernel_probe` (body
-`topk_kernel`): the C smallest values of each row, ascending.  It is the
-values-only entry of the same CUDA source.
+`topk_kernel`): the C smallest values of each row, ascending, as a stable
+sort gives them (-0.0 and +0.0 equal, the lower index first).  Its kernel
+is `csrc/topk_smallest.cu`.
 
-On a CUDA tensor each wrapper launches `csrc/select_candidates.cu` (design
-and bound in its header) or raises; there is no fallback.  On a CPU tensor
+On a CUDA tensor each wrapper launches its kernel (`csrc/select_candidates.cu`
+for K3; design and bound in each source's header) or raises; there is no
+fallback.  On a CPU tensor
 it runs the plain version.  The plain versions compute the same distance
 with the same separate roundings and take the first C+1 of a stable sort,
 so on the card kernel and plain agree exactly.  They keep the input dtype:
@@ -39,9 +41,11 @@ _BIG = 3.0e38
 # (grid_nn._FAR2 of the reference)
 _FAR2 = 1.0e17
 # dynamic shared memory a block may use without opting in: the default
-# 48 KB less room for the kernel's static reduction buffers.  The largest
-# row on the mapping path (27 cells x 216 slots) takes 23,328 B; a longer
-# row would need cudaFuncSetAttribute's opt-in in the kernel's launcher.
+# 48 KB less room for the kernel's static reduction buffers.  K3 keeps a
+# row's keys there: the largest row on the mapping path (27 cells x 216
+# slots) takes 23,328 B; a longer row would need cudaFuncSetAttribute's
+# opt-in in the kernel's launcher.  K6 takes rows of the same length: its
+# sort buffer (opted in above 48 KB) holds at most 16,384 words then.
 _SMEM_LIMIT = 47 * 1024
 
 
@@ -100,24 +104,28 @@ def select_raw_plain(query, q_valid, cand, ok, C: int):
     return d2o, xyzo.transpose(1, 2)
 
 
-_LIB = []
+# each kernel's C entry and its argument types
+_ENTRIES = {
+    "select_candidates": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+    + [ctypes.c_void_p] * 3,
+    "topk_smallest": [ctypes.c_void_p] + [ctypes.c_int] * 3
+    + [ctypes.c_void_p] * 2,
+}
+_LIBS: dict = {}
 
 
-def _lib():
-    """The built library with its C signatures, set up on first use."""
-    if not _LIB:
+def _entry(name):
+    """The C entry `<name>_launch` of the built library `name`, with its
+    signature, set up on first use."""
+    fn = _LIBS.get(name)
+    if fn is None:
         from lins_tpu_torch.ops import build
 
-        lib = build.load("select_candidates")
-        lib.select_candidates_launch.argtypes = (
-            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
-            + [ctypes.c_void_p] * 3)
-        lib.select_candidates_launch.restype = ctypes.c_int
-        lib.topk_smallest_launch.argtypes = (
-            [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2)
-        lib.topk_smallest_launch.restype = ctypes.c_int
-        _LIB.append(lib)
-    return _LIB[0]
+        fn = getattr(build.load(name), f"{name}_launch")
+        fn.argtypes = _ENTRIES[name]
+        fn.restype = ctypes.c_int
+        _LIBS[name] = fn
+    return fn
 
 
 def select_candidates(query, q_valid, cand, ok, C: int,
@@ -163,7 +171,7 @@ def launch_select(query, q_valid, cand, ok, C: int):
     xyzo = torch.empty((Q, R, 3), dtype=torch.float32, device=dev)
     if Q > 0:
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _lib().select_candidates_launch(
+        err = _entry("select_candidates")(
             query.data_ptr(), q_valid.data_ptr(), cand.data_ptr(),
             ok.data_ptr(), Q, nb, cap, R, d2o.data_ptr(), xyzo.data_ptr(),
             stream)
@@ -191,7 +199,8 @@ def topk_smallest(d2, C: int):
     """The C smallest values of each row of a (Q, B) block, ascending.
 
     CUDA tensors (float32, no NaN): one launch of K6, counted in
-    `topk_smallest.launches`.  CPU tensors: `topk_smallest_plain`."""
+    `topk_smallest.launches`, bit-equal to `topk_smallest_plain`.  CPU
+    tensors: `topk_smallest_plain`."""
     dev = d2.device
     if dev.type == "cpu":
         return topk_smallest_plain(d2, C)
@@ -202,13 +211,14 @@ def topk_smallest(d2, C: int):
     if not 1 <= C <= B:
         raise ValueError(f"topk_smallest: needs 1 <= C <= B = {B}, got {C}")
     if 4 * B > _SMEM_LIMIT:
-        raise ValueError(f"topk_smallest: a row of {B} values needs {4 * B} "
-                         f"B of shared memory (limit {_SMEM_LIMIT})")
+        raise ValueError(f"topk_smallest: rows of at most {_SMEM_LIMIT // 4} "
+                         f"values, got {B} (the kernel's sort buffer, up to "
+                         f"8 B a value at C = B, lives in shared memory)")
     out = torch.empty((Q, C), dtype=torch.float32, device=dev)
     if Q > 0:
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _lib().topk_smallest_launch(d2.data_ptr(), Q, B, C,
-                                          out.data_ptr(), stream)
+        err = _entry("topk_smallest")(d2.data_ptr(), Q, B, C,
+                                      out.data_ptr(), stream)
         if err != 0:
             raise RuntimeError(f"topk_smallest kernel launch failed: CUDA "
                                f"error {err}")

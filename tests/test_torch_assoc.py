@@ -12,7 +12,11 @@ on the CPU, through their plain versions:
       and differs from the attic, as the module docstring says;
   (d) the GN rows against `lins_tpu/odometry/gn_icp.py::gn_step`'s;
   (e) edge cases: no valid query, no valid reference, every query beyond
-      max_d2, NaN coordinates in padded rows.
+      max_d2, NaN coordinates in padded rows;
+  (f) the card's reference layout (`ring_layout`) as a plain function, and
+      a PyTorch emulation of the kernel's windowed search over it, which
+      must pick `_tripod`'s neighbours (random, exact-tie and NaN-padded
+      cases at 16 and 64 rings).
 An entry's scale: entry (a, b) of the Gram G of the rows [J6 | r] (JtJ,
 Jtr, Σr²) has the scale sqrt(G_aa·G_bb) of the expected diagonal, by
 Cauchy-Schwarz a bound of its sum of |terms|."""
@@ -416,3 +420,138 @@ def test_launch_refuses_cpu_tensors():
     pose = assoc.pose_scalars(args[6].float(), args[7].float(), "ieskf")
     with pytest.raises(ValueError, match="unsupported device"):
         assoc.launch((q, ref), None, pose, "ieskf", True, 25.0, 1.0)
+
+
+# (f) the card's reference layout ------------------------------------------
+
+def _layout_case(seed, kind, rings, variant):
+    """A float32 random case on `rings` rings: "random"; "lattice" (every
+    coordinate on a 0.25 m lattice, no de-skew, so many distances tie
+    exactly); "nan" (the invalid rows' coordinates NaN, and three valid
+    references with a NaN or infinite coordinate)."""
+    case = _random_case(seed, kind, rings)
+    if variant == "lattice":
+        for k in ("q_xyz", "r_xyz"):
+            case[k] = np.round(case[k] * 4) / 4
+        case["q_rel"] = 0 * case["q_rel"]
+        case["qbn"] = np.asarray([1.0, 0.0, 0.0, 0.0])
+    elif variant == "nan":
+        case["q_xyz"][~case["q_valid"]] = np.nan
+        case["r_xyz"][~case["r_valid"]] = np.nan
+        good = np.flatnonzero(case["r_valid"])
+        case["r_xyz"][good[0], 0] = np.nan
+        case["r_xyz"][good[5], 2] = np.nan
+        case["r_xyz"][good[9], 1] = np.inf
+    return _cast(case, np.float32)
+
+
+def _layout(case):
+    return assoc.ring_layout(torch.as_tensor(case["r_xyz"]),
+                             torch.as_tensor(case["r_ring"]),
+                             torch.as_tensor(case["r_valid"]))
+
+
+@pytest.mark.parametrize("rings", [16, 64])
+@pytest.mark.parametrize("variant", ["random", "lattice", "nan"])
+def test_ring_layout(variant, rings):
+    """Every valid reference with finite coordinates appears once, under its
+    original index, with its coordinates and ring; rings in order, each in
+    ascending index; the offsets count the rows before each ring; invalid
+    and non-finite rows are left out."""
+    case = _layout_case(11, "surf", rings, variant)
+    packed, offsets = _layout(case)
+    xyz, ring, valid = case["r_xyz"], case["r_ring"], case["r_valid"]
+    R = len(valid)
+    assert packed.shape == (R, 4) and packed.dtype == torch.float32
+    assert offsets.shape == (assoc._RINGS + 1,)
+    assert offsets.dtype == torch.int32
+    keep = valid & np.isfinite(xyz).all(axis=1)
+    if variant == "nan":
+        assert keep.sum() == valid.sum() - 3
+    n = int(offsets[-1])
+    assert n == int(keep.sum())
+    word = packed[:n, 3].contiguous().view(torch.int32).numpy()
+    idx, on = word >> 8, word & 255
+    want = np.lexsort((np.arange(R), ring))      # ring order, stable
+    want = want[keep[want]]
+    np.testing.assert_array_equal(idx, want)
+    np.testing.assert_array_equal(on, ring[want])
+    np.testing.assert_array_equal(packed[:n, :3].numpy(), xyz[want])
+    np.testing.assert_array_equal(
+        offsets.numpy(), np.searchsorted(ring[want], np.arange(257)))
+
+
+def _window_search(kind, p0, packed, offsets):
+    """The kernel's two passes over the ring layout, in PyTorch: pass 1
+    over the valid rows, pass 2 over the rows of rings ring[i1]-2 ..
+    ring[i1]+2 found through the offsets, each minimum the least (d2,
+    original index); a NaN distance is no candidate.  Returns (i1, d1)
+    and the (i, d) of the same-ring (K4 only) and other-ring minima, as
+    original indices, -1 and inf where there is none."""
+    inf = torch.inf
+    n = int(offsets[-1])
+    rows = packed[:n]
+    word = rows[:, 3].contiguous().view(torch.int32).long()
+    idx, ring = word >> 8, word & 255
+    pos = torch.arange(n)
+    D = assoc.pairwise_d2(p0, rows[:, :3])
+    cand = ~torch.isnan(D)
+
+    def least(mask):
+        Dm = torch.where(mask, D, inf)
+        d = Dm.min(dim=1).values if n else torch.full((len(p0[0]),), inf)
+        tie = mask & (Dm == d[:, None])
+        i = torch.where(tie, idx[None, :], R_BIG).min(dim=1).values \
+            if n else torch.full((len(p0[0]),), R_BIG)
+        none = i == R_BIG
+        return torch.where(none, -1, i), torch.where(none, inf, d)
+
+    i1, d1 = least(cand)
+    p1 = torch.where(i1[:, None] == idx[None, :], pos[None, :], -1).amax(1)
+    r1 = ring[p1.clamp(min=0)]
+    lo = offsets.long()[(r1 - 2).clamp(min=0)]
+    hi = offsets.long()[(r1 + 3).clamp(max=assoc._RINGS)]
+    window = (pos[None, :] >= lo[:, None]) & (pos[None, :] < hi[:, None])
+    window &= cand & (i1 >= 0)[:, None]
+    same = ring[None, :] == r1[:, None]
+    far = least(window & ~same)
+    if kind == "corner":
+        return (i1, d1), far
+    return (i1, d1), least(window & same & (pos[None, :] != p1[:, None])), far
+
+
+R_BIG = 2 ** 40
+
+
+@pytest.mark.parametrize("rings", [16, 64])
+@pytest.mark.parametrize("variant", ["random", "lattice", "nan"])
+@pytest.mark.parametrize("kind", ["surf", "corner"])
+def test_windowed_search_picks_the_tripod(kind, variant, rings):
+    """The kernel's search over the layout (emulated) picks the same i1,
+    i2 (and i3) with the same distances as the plain version's full search
+    (`_tripod`), exact ties included, wherever the plain version has a
+    candidate, and none where it has none."""
+    case = _layout_case(12, kind, rings, variant)
+    t = {k: torch.as_tensor(np.array(v)) for k, v in case.items()}
+    pose = assoc.pose_scalars(t["rn"], t["qbn"], "gn")
+    p0, _ = assoc.deskew(t["q_xyz"], t["q_rel"], pose)
+    ref = assoc.References(t["r_xyz"], t["r_ring"], t["r_valid"], None, None)
+    want = assoc._tripod(kind, p0, ref)
+    got = _window_search(kind, p0, *_layout(case))
+    want_pairs = [want[:2]] + list(want[2:])
+    assert len(got) == len(want_pairs)
+    matched = torch.isfinite(want[1])
+    assert int(matched.sum()) > 0
+    for k, ((gi, gd), (wi, wd)) in enumerate(zip(got, want_pairs)):
+        has = torch.isfinite(wd) & matched
+        assert int(has.sum()) > 0 or k > 0
+        assert torch.equal(gi[has], wi[has]), f"minimum {k}: indices differ"
+        assert torch.equal(gd[has], wd[has]), f"minimum {k}: distances differ"
+        assert bool(torch.isinf(gd[~has & matched]).all()), \
+            f"minimum {k}: a candidate where the plain version has none"
+    if variant == "lattice":
+        # the ties were real: some query's tripod had two references at its
+        # least distance
+        D = assoc.pairwise_d2(p0, t["r_xyz"]).masked_fill(
+            ~t["r_valid"][None, :], torch.inf)
+        assert bool(((D == want[1][:, None]).sum(1) > 1)[matched].any())

@@ -197,6 +197,39 @@ def test_select_kernel_refuses_bad_inputs(cuda_device):
         select.topk_smallest(long_row, 4)
 
 
+def _topk_rows(name):
+    rng = np.random.default_rng(len(name))
+    if name == "B = 1000":
+        return rng.uniform(0, 100, (100, 1000))
+    if name == "signed zeros":
+        x = rng.uniform(-50, 50, (64, 1000))
+        x[:, ::7], x[:, 3::7] = 0.0, -0.0
+        x[0], x[1, 500:], x[2] = -0.0, np.inf, -np.inf
+        return x
+    if name == "one value a row":
+        return np.repeat(rng.integers(-3, 4, (32, 1)), 1728, axis=1)
+    return rng.uniform(0, 1, (8, 12032))       # longest accepted rows
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,C", [
+    ("B = 1000", 1), ("B = 1000", 64), ("B = 1000", 1000),
+    ("signed zeros", 1), ("signed zeros", 143), ("signed zeros", 1000),
+    ("one value a row", 1), ("one value a row", 1728),
+    ("long rows", 64), ("long rows", 12032)])
+def test_topk_kernel_edge_cases(cuda_device, name, C):
+    """K6 bit for bit equal to its plain version (a stable sort: -0.0 and
+    +0.0 equal, the lower index first) and equal in value to torch.topk,
+    for C = 1 to B, rows not a multiple of 32, negative values, signed
+    zeros, infinities, rows of one value and the longest rows."""
+    x = torch.as_tensor(np.asarray(_topk_rows(name), np.float32),
+                        device=cuda_device)
+    got = select.topk_smallest(x, C)
+    want = select.topk_smallest_plain(x, C)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(got, torch.topk(x, C, dim=1, largest=False).values)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("Q,B,C", [(128, 256, 8), (1024, 1728, 64)])
 def test_topk_kernel_matches_plain(cuda_device, Q, B, C):
@@ -287,11 +320,13 @@ def test_loop_replay_on_card(cuda_device):
     np.testing.assert_allclose(pg[:len(pc)], pc, rtol=0, atol=0.05)
 
 
-def _assoc_sets(device, seed, lattice=False, shapes=((96, 700), (40, 300))):
+def _assoc_sets(device, seed, lattice=False, shapes=((96, 700), (40, 300)),
+                on_rings=tuple(range(16)), one_reference=False):
     """Random K4 and K5 sets on the card: queries in a 40 m box, references
-    about them on 16 rings, about 10% of each invalid (their coordinates
-    NaN); `lattice` puts every coordinate on a 0.25 m lattice with no
-    de-skew time, so distances tie exactly."""
+    about them on the rings `on_rings` (16 by default), about 10% of each
+    invalid (their coordinates NaN); `lattice` puts every coordinate on a
+    0.25 m lattice with no de-skew time, so distances tie exactly;
+    `one_reference` leaves a single valid reference."""
     rng = np.random.default_rng(seed)
     sets = []
     for Q, R in shapes:
@@ -302,14 +337,17 @@ def _assoc_sets(device, seed, lattice=False, shapes=((96, 700), (40, 300))):
         if lattice:
             q, r, rel = np.round(q * 4) / 4, np.round(r * 4) / 4, 0 * rel
         qv, rv = rng.random(Q) < 0.9, rng.random(R) < 0.9
+        if one_reference:
+            rv[:] = False
+            rv[R // 2] = True
         q[~qv], r[~rv] = np.nan, np.nan
+        ring = rng.choice(np.asarray(on_rings), R)
 
         def t(a, dt=torch.float32):
             return torch.as_tensor(a).to(device=device, dtype=dt)
 
         sets.append((assoc.Queries(t(q), t(rel), t(qv, torch.bool)),
-                     assoc.references(t(r), t(rng.integers(0, 16, R),
-                                              torch.int32),
+                     assoc.references(t(r), t(ring, torch.int32),
                                       t(rv, torch.bool))))
     return sets
 
@@ -350,6 +388,50 @@ def test_assoc_kernel_matches_plain(cuda_device, form, lattice):
                 d[:, None] * d[None, :])
             assert bool(((g - w).abs() <= tol).all())
     assert kept > 20
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,kw", [
+    ("two neighbouring rings", dict(on_rings=(7, 8))),
+    ("five rings, the end ones two from their neighbours",
+     dict(on_rings=(0, 2, 7, 13, 15))),
+    ("first two and last two rings", dict(on_rings=(0, 1, 14, 15))),
+    ("the layout's last rings", dict(on_rings=(253, 254, 255))),
+    ("one valid ring", dict(on_rings=(5,))),
+    ("a single valid reference", dict(one_reference=True)),
+])
+def test_assoc_kernel_ring_edge_cases(cuda_device, name, kw):
+    """K4 and K5 on references on few rings, with i1 on the first or last
+    ring (the ±2 window clipped), on one ring, and with one valid
+    reference: counts equal the plain version's, blocks within its rule,
+    and rows are kept wherever a ring has a neighbour within ±2; the
+    card's layout equals the CPU's."""
+    surf, corner = _assoc_sets(cuda_device, 9, **kw)
+    for _, ref in (surf, corner):
+        cpu = assoc.ring_layout(ref.xyz.cpu(), ref.ring.cpu(),
+                                ref.valid.cpu())
+        # bit for bit: the invalid rows past the valid ones hold NaN
+        assert torch.equal(ref.packed.cpu().view(torch.int32),
+                           cpu[0].view(torch.int32))
+        assert torch.equal(ref.offsets.cpu(), cpu[1])
+    rn = torch.tensor([0.2, -0.1, 0.03], device=cuda_device)
+    qbn = torch.tensor([0.999, 0.012, -0.02, 0.03], device=cuda_device)
+    qbn = qbn / torch.linalg.vector_norm(qbn)
+    for form in ("ieskf", "gn"):
+        pose = assoc.pose_scalars(rn, qbn, form)
+        scale = 1.0 if form == "ieskf" else assoc.GN_RES_SCALE
+        got = assoc.launch(surf, corner, pose, form, True, 25.0, scale)
+        for k, (kind, pair) in enumerate(((assoc.SURF, surf),
+                                          (assoc.CORNER, corner))):
+            want = assoc._plain(kind, *pair, pose, form, True, 25.0, scale)
+            assert int(got[k][3]) == int(want[3]), name
+            if len(kw.get("on_rings", ())) > 1:
+                assert int(want[3]) > 0, name
+            g, w = _gram(got[k]), _gram(want)
+            d = w.diagonal().clamp(min=0.0)
+            tol = 2 * pair[0].xyz.shape[0] * 2.0 ** -24 * torch.sqrt(
+                d[:, None] * d[None, :])
+            assert bool(((g - w).abs() <= tol).all()), name
 
 
 def _gram(blocks):
