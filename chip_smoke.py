@@ -10,11 +10,17 @@ Phases, in order; any failure exits non-zero:
   2. build       nvcc of every kernel source, all started together
   3. kernels     each hand-written kernel against its plain PyTorch version
                  on the card, exactly: K1 on random graphs, edge cases and a
-                 real VLP-16 chunk; K2 on random 64x1800 graphs, seam and
-                 wrap cases, empty and full grids, a 64x1024 OS1-64 grid and
-                 a real HDL-64 chunk; K3 on random gathered blocks with
-                 ties, tombstones, invalid rows and short rows at the
-                 mapping shapes and the loop polish's; K6 on the canary's
+                 real VLP-16 chunk; K2 (one launch, a thread-block cluster
+                 a scan) on random 64x1800 graphs, seam and wrap cases,
+                 empty and full grids at 64x1800 and 64x1024, a 64x1024
+                 OS1-64 grid and a real HDL-64 chunk, with the clusters the
+                 card holds at once, one launch a call and faster than the
+                 previous two-launch design; K3 (the bucket gather, the
+                 selection and the finishing ops in one launch) bit for bit
+                 on random grids with lattice ties, colliding buckets,
+                 tombstones, short and empty buckets, invalid queries and
+                 short rows at the mapping shapes and the loop polish's;
+                 K6 on the canary's
                  shapes and on rows of 1000, rows of one value, signed
                  zeros and infinities, a lattice of ties and the longest
                  rows, C from 1 to B (bit for bit against its plain
@@ -44,7 +50,9 @@ Phases, in order; any failure exits non-zero:
                  step), no plain selection, fused ATE <= the odometry ATE of
                  the same scans and <= 0.25 m, SLAM scans/s, syncs, peak;
                  then K3 against its plain version on real gathers of the
-                 final map, with kernel, plain and torch.topk times
+                 final map, bit for bit for both d2C rules, with kernel,
+                 plain and library times, both bounds and the previous
+                 route's parts; the pair faster than the previous kernel
      path V      bench.py's main cell: the same with loop attempts on, over
                  all 134 scans (no revisit, so no loop is found, but every
                  attempt's alignment is computed and selected on the card):
@@ -125,13 +133,27 @@ SOLVE_CPU_TOL_RAD = 1e-3
 # |terms|: each of two float32 sums of up to 512 rows, in different orders,
 # errs by at most about 512 * 2^-24 of it
 K45_TOL = 2 * 512 * 2.0 ** -24
-# the previous designs' times, logged beside this run's and the pair's a
-# gate: the association kernel of one warp a query over the padded
-# reference set, and K6 of one block a row taking C minima in turn
-# (milliseconds by CUDA events, calls enqueued while the card slept, on an
-# NVIDIA H100 80GB HBM3 at 700.00 W): the K4+K5 pair on the real VLP-16
-# trip, and K6 at (6144, 1728), C = 64
-PREVIOUS_MS = {"K4+K5 pair": 0.04998, "K6": 0.36348}
+# the previous designs' times, logged beside this run's and gates where
+# named so (milliseconds by CUDA events on an NVIDIA H100 80GB HBM3 at
+# 700.00 W): the association kernel of one warp a query over the padded
+# reference set, the K4+K5 pair on the real VLP-16 trip, and K6 of one
+# block a row taking C minima in turn at (6144, 1728), C = 64, both with
+# the calls enqueued while the card slept (gates); K3 of one block a row
+# over the gathered block, per corner + surf pair of the window map's
+# final gathers (gate), and its whole wrapper with the finishing ops; K2
+# of two launches, per 32-scan HDL-64 chunk (gate); K1 per 32-scan VLP-16
+# chunk (logged beside this run's)
+PREVIOUS_MS = {"K4+K5 pair": 0.04998, "K6": 0.36348, "K3 pair": 0.1957,
+               "K3 wrapper pair": 0.3433, "K2": 0.3206, "K1": 0.0716}
+# the previous K3 route on the card, part by part, per gather (ms; the
+# bucket ids alone were paced by the host's enqueue and are left out): the
+# duplicate mask, cells[bb], cnt[bb] and ok; the kernel; the finishing ops
+# (the same card and power limit)
+PREVIOUS_K3_PARTS_MS = {
+    "surf": {"mask + gather": 0.0981, "kernel": 0.1556, "finish": 0.0203},
+    "corner": {"mask + gather": 0.0652, "kernel": 0.0382, "finish": 0.0188},
+    "polish surf": {"mask + gather": 0.1922, "kernel": 0.1845,
+                    "finish": 0.0204}}
 # H100 SXM published peaks (NVIDIA data sheet): HBM rate, and the float32
 # rate outside the tensor cores, used for the kernels' scalar operations
 HBM_BYTES_PER_S = 3.35e12
@@ -525,7 +547,10 @@ def phase_k1(cfg, data):
               f"({int(el.sum())} eligible cells, "
               f"{int(torch.unique(want[el.bool()]).numel())} components)")
 
-    ms = cuda_ms(lambda: label.label_components(*real), 50)
+    # three timings, so that the noise shows beside the previous body's
+    runs = sorted(cuda_ms(lambda: label.label_components(*real), 50)
+                  for _ in range(3))
+    ms = runs[1]
     plain_ms = cuda_ms(lambda: label.label_components_plain(*real), 3)
     K, L, S = real[2].shape
     cells = K * L * S
@@ -533,8 +558,10 @@ def phase_k1(cfg, data):
     # one min per cell and edge direction
     bytes_moved = 3 * cells + 4 * cells
     bound_ms, bound_by = bound(bytes_moved, 4 * cells)
-    log(f"  K1 label_components ({K},{L},{S}): kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bytes_moved} B)")
+    log(f"  K1 label_components ({K},{L},{S}): kernel {ms:.4f} ms (three "
+        f"timings {', '.join(f'{t:.4f}' for t in runs)}; the previous "
+        f"label_grid.cuh {PREVIOUS_MS['K1']:.4f}), plain {plain_ms:.4f} ms, "
+        f"bound {bound_ms:.5f} ms ({bytes_moved} B)")
     return dict(name="label_components", route="cuda",
                 source="lins_tpu_torch/csrc/label_components.cu",
                 replaces="lins_tpu/ops/pallas_label.py:118",
@@ -567,7 +594,7 @@ def _k2_edge_cases(S):
     return cases
 
 
-def phase_k2(cfg_h, data_h):
+def phase_k2(cfg_h, data_h, smi):
     """K2 against its plain version on the card; returns its JSON entry
     (launches filled in by path H)."""
     import torch
@@ -579,6 +606,12 @@ def phase_k2(cfg_h, data_h):
     dev = torch.device("cuda")
     check(label.route(64, 1800) == "K2" and label.route(64, 1024) == "K2",
           "64x1800 and 64x1024 grids route to K2")
+    for S in (1800, 1024):
+        for rows in (16, 8):
+            log(f"  K2 at 64x{S} in {64 // rows} blocks of {rows} rows: the "
+                f"card holds {label.resident_clusters(64, S, rows)} clusters "
+                f"at once" + (" (the blocks the wrapper takes)"
+                              if rows == label.piece_rows(64) else ""))
     cases = []
     for seed in range(3):
         cases.append((f"random_masked_seed{seed}", *_random_graph(
@@ -588,6 +621,8 @@ def phase_k2(cfg_h, data_h):
     cases.append(("os1_64_random_seed4", *_random_graph(
         np.random.default_rng(4), (K_CHUNK, 64, 1024), True)))
     cases += _k2_edge_cases(1800)
+    cases += [(f"{name} at 64x1024", *arrs)
+              for name, *arrs in _k2_edge_cases(1024)]
     cases = [(name, *(torch.as_tensor(a, device=dev) for a in arrs))
              for name, *arrs in cases]
     # a real chunk of path H: scans 2..33 through frontend_pre
@@ -618,17 +653,22 @@ def phase_k2(cfg_h, data_h):
                       label.label_components_plain(*real)),
           "plain K2 == plain K1 on the real HDL-64 chunk")
 
+    prof, _ = profile_call(lambda: label.label_components(*real))
+    check(prof["launches"] == 1, f"one K2 call is {prof['launches']} device "
+          f"launch(es) on the real chunk: {prof['top']}")
     ms = cuda_ms(lambda: label.label_components(*real), 50)
     plain_ms = cuda_ms(lambda: label.label_blocked_plain(*real), 3)
     K, L, S = real[2].shape
     cells = K * L * S
-    # each input byte read once, each int32 label written once (the parent
-    # table is the design's scratch, not the function's); at least one min
-    # per cell and edge direction
+    # each input byte read once, each int32 label written once; at least
+    # one min per cell and edge direction
     bytes_moved = 3 * cells + 4 * cells
     bound_ms, bound_by = bound(bytes_moved, 4 * cells)
     log(f"  K2 label_components ({K},{L},{S}): kernel {ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bytes_moved} B)")
+    check(ms < PREVIOUS_MS["K2"], f"K2 on the real HDL-64 chunk faster than "
+          f"the previous two-launch design: {ms:.4f} < {PREVIOUS_MS['K2']:.4f}"
+          f" ms a chunk on {smi}")
     return dict(name="label_blocked", route="cuda",
                 source="lins_tpu_torch/csrc/label_blocked.cu",
                 replaces="lins_tpu/ops/pallas_label.py:135",
@@ -637,50 +677,74 @@ def phase_k2(cfg_h, data_h):
                 library_ms=None)
 
 
-def _select_case(seed, Q, nb, cap, quantized=False):
-    """A random gathered block (Q, nb, 3, cap) with the mapping path's edge
-    cases: duplicate points (exact ties), tombstones at the voxel map's
-    SENTINEL, an all-invalid row, invalid queries, rows with fewer than C+1
-    valid candidates.  `quantized` puts every coordinate on a 0.25 m
-    lattice, so many distances tie exactly."""
+def _select_grid(seed, Q, nb, cap, table, lattice=False, ties=False):
+    """A random map grid (table, 3, cap) with its counts, and Q query rows
+    of nb bucket ids, on the card, with the mapping path's edge cases:
+    duplicate points (exact ties; with `lattice` every coordinate on a
+    0.25 m lattice, so many more; with `ties` half the buckets one point in
+    every slot, more ties at one distance than K3 sorts at once); two
+    neighbour cells of a row hashed to one bucket; tombstones at the voxel
+    map's SENTINEL among the counted slots; counts below cap and empty
+    buckets; rows with fewer than C+1 candidates; an all-invalid row (only
+    empty buckets); invalid queries.  Returns (query, q_valid, bb, cells,
+    cnt), the arguments of select_candidates before C."""
+    import torch
+
+    from lins_tpu_torch.ops.voxel_map import SENTINEL
+
     rng = np.random.default_rng(seed)
-    q = rng.uniform(-20, 20, (Q, 3)).astype(np.float32)
-    cand = q[:, None, :, None] + rng.uniform(-2, 2, (Q, nb, 3, cap))
-    if quantized:
-        q = np.round(q * 4) / 4
-        cand = np.round(cand * 4) / 4
-    cand = cand.astype(np.float32)
-    cand[:, 1, :, :20] = cand[:, 0, :, :20]
-    cand[:, :, :, 5] = cand[:, :, :, 4]
-    cand[:, 2, :, 30:40] = 1.0e9
-    ok = rng.random((Q, nb, cap)) < 0.8
-    ok[0] = False
-    ok[1:9] = False
-    ok[1:9, 0, :7] = True
-    qv = rng.random(Q) < 0.95
+    q = rng.uniform(-1, 1, (Q, 3))
+    cells = rng.uniform(-2.5, 2.5, (table, 3, cap))
+    if lattice:
+        q, cells = np.round(q * 4) / 4, np.round(cells * 4) / 4
+    cells[:, :, 3] = cells[:, :, 2]
+    cnt = rng.integers(0, cap + 1, table)
+    cnt[::7] = cap
+    cnt[1::11] = 0
+    if ties:
+        half = (np.arange(table) % 2 == 0) & (cnt > 0)
+        cells[half] = cells[half][:, :, :1]
+        cnt[half] = cap
+    cells.transpose(0, 2, 1)[rng.random((table, cap)) < 0.05] = SENTINEL
+    bb = rng.integers(0, table, (Q, nb))
+    bb[::3, 1] = bb[::3, 0]
+    short = bb[1:9]
+    short[:] = rng.choice(np.flatnonzero(cnt <= 1), short.shape)
+    bb[0] = np.flatnonzero(cnt == 0)[0]
+    qv = rng.random(Q) < 0.9
     qv[9 % Q] = False
-    return q, qv, cand, ok
+    dev = torch.device("cuda")
+    return (torch.as_tensor(q.astype(np.float32), device=dev),
+            torch.as_tensor(qv, device=dev),
+            torch.as_tensor(bb.astype(np.int32), device=dev),
+            torch.as_tensor(cells.astype(np.float32), device=dev),
+            torch.as_tensor(cnt.astype(np.int32), device=dev))
 
 
 def _k3_equal(args, C, what):
-    """K3 vs its plain version on the same card tensors, for both d2C
-    rules; returns the largest difference of kept distances."""
+    """K3 vs its plain version on the same card tensors, bit for bit, for
+    both d2C rules, one launch a call; returns the largest difference of
+    kept distances."""
     import torch
 
     from lins_tpu_torch.ops import select
 
     err = 0.0
     for first_dropped in (True, False):
+        before = select.select_candidates.launches
         got = select.select_candidates(*args, C, first_dropped=first_dropped)
         torch.cuda.synchronize()
         want = select.select_candidates_plain(*args, C,
                                               first_dropped=first_dropped)
         names = ("cand", "cand_ok", "d2k", "d2C")
-        same = [torch.equal(g, w) for g, w in zip(got, want)]
+        same = [torch.equal(g, w) if g.dtype == torch.bool else
+                torch.equal(g.view(torch.int32), w.view(torch.int32))
+                for g, w in zip(got, want)]
         fin = torch.isfinite(want[2])
         if fin.any():
             err = max(err, float((got[2][fin] - want[2][fin]).abs().max()))
-        check(all(same), f"K3 == plain on {what} (first_dropped="
+        check(all(same) and select.select_candidates.launches == before + 1,
+              f"K3 == plain bit for bit on {what} (first_dropped="
               f"{first_dropped}; {int(want[1].sum())} kept): "
               + ", ".join(f"{n} {'equal' if s else 'DIFFER'}"
                           for n, s in zip(names, same)))
@@ -688,77 +752,108 @@ def _k3_equal(args, C, what):
 
 
 def phase_k3_synthetic(C):
-    import torch
-
-    log("== 3. kernels: K3 select_candidates")
-    dev = torch.device("cuda")
+    log("== 3. kernels: K3 select_candidates (gather, selection, finish)")
     err = 0.0
-    for seed, (Q, nb, cap), quant in ((0, (4096, 8, 216), False),
-                                      (1, (512, 27, 216), False),
-                                      (2, (4096, 8, 216), True),
-                                      (3, (512, 27, 216), True),
-                                      (4, (37, 3, 11), False),
-                                      (5, (8192, 27, 64), False),
-                                      (6, (8192, 27, 64), True),
-                                      (7, (8, 27, 64), False)):
-        arrs = _select_case(seed, Q, nb, cap, quant)
-        args = [torch.as_tensor(a, device=dev) for a in arrs]
-        err = max(err, _k3_equal(args, C, f"random block {(Q, nb, 3, cap)}"
-                                 + (" on a lattice" if quant else "")))
+    for seed, (Q, nb, cap, table), kind in (
+            (0, (4096, 8, 216, 16384), ""), (1, (512, 27, 216, 8192), ""),
+            (2, (4096, 8, 216, 16384), "lattice"),
+            (3, (512, 27, 216, 8192), "lattice"), (4, (37, 3, 11, 40), ""),
+            (5, (8192, 27, 64, 8192), ""),
+            (6, (8192, 27, 64, 8192), "lattice"), (7, (8, 27, 64, 8192), ""),
+            (8, (512, 8, 216, 64), "ties"), (9, (512, 27, 64, 64), "ties")):
+        args = _select_grid(seed, Q, nb, cap, table, lattice=kind == "lattice",
+                            ties=kind == "ties")
+        err = max(err, _k3_equal(args, C, f"a random grid, {Q} rows of {nb} "
+                                 f"buckets of {cap} slots (table {table})"
+                                 + (f", {kind}" if kind else "")))
     return err
 
 
-def k3_times(args, C, what):
-    """Kernel, plain and library times of K3 at one shape, and its bound.
-    All three stop at the same point, the C+1 nearest distances and
-    coordinates before the wrapper's finishing ops: the kernel's launch
-    (`launch_select`), the plain version's distances, sort and gathers
-    (`select_raw_plain`), and torch.topk + three gathers on the same masked
-    distances.  The whole wrapper (kernel + finishing ops, as the main path
-    calls it) is logged beside them; on a slow host its reading is the
-    enqueue rate of its small ops."""
+def k3_times(args, C, what, previous):
+    """Times of K3 at one real gather, the previous route's parts beside
+    them, and both bounds.  The kernel is timed with its calls enqueued
+    while the card sleeps, and also as the host paces it; the plain version
+    and the library yardstick (cells[bb], the masks, masked distances,
+    torch.topk, three gathers and the finishing ops, all PyTorch calls) on
+    the same inputs."""
     import torch
 
     from lins_tpu_torch.ops import select
 
-    query, q_valid, cand, ok = args
-    Q, nb, _, cap = cand.shape
+    query, q_valid, bb, cells, cnt = args
+    Q, nb = bb.shape
+    cap = cells.shape[2]
     B, R = nb * cap, C + 1
-    ms = cuda_ms(lambda: select.launch_select(*args, C), 50)
-    wrapper_ms = cuda_ms(lambda: select.select_candidates(*args, C), 50)
-    plain_ms = cuda_ms(lambda: select.select_raw_plain(*args, C), 5)
-    d2 = select.masked_d2(query, q_valid, cand, ok)
-    planes = cand.transpose(1, 2).reshape(Q, 3, B)
+
+    def kernel():
+        return select.select_candidates(*args, C)
 
     def library():
+        cand, ok = select.gather_block(bb, cells, cnt)
+        d2 = select.masked_d2(query, q_valid, cand, ok)
         d, i = torch.topk(d2, R, dim=1, largest=False)
-        return d, [torch.gather(planes[:, k], 1, i) for k in range(3)]
+        planes = cand.transpose(1, 2).reshape(Q, 3, B)
+        xyz = torch.stack([torch.gather(planes[:, k], 1, i)
+                           for k in range(3)], dim=-1)
+        return select._finish(query, d, xyz, C, True)
 
-    library_ms = cuda_ms(library, 20)
-    # each input read once (3 float32 coordinates and one ok byte per
-    # candidate, a query and its flag per row), each output written once
-    # (distance and 3 coordinates per kept column); the operations are the
-    # distance (8 per candidate) and a compare per candidate and round
-    bytes_moved = Q * B * 13 + Q * 13 + Q * R * 16
-    ops = Q * B * (8 + R)
+    ms, paced_ms = device_ms(kernel, 50), cuda_ms(kernel, 50)
+    plain_ms = cuda_ms(lambda: select.select_candidates_plain(*args, C), 5)
+    library_ms = device_ms(library, 10)
+    # the fused function: each query, flag and bucket id read once, each
+    # output written once, and of each distinct bucket a valid row reaches
+    # its count and its counted slots' coordinates, min(cnt, cap) x 12 B
+    # (the kernel reads no slot at or above a count and no bucket of an
+    # invalid row); 8 operations a distance of every slot the rows take
+    _, ok = select.gather_block(bb, cells, cnt)
+    slots = int((ok & q_valid[:, None, None]).sum())
+    reached = torch.unique(bb[q_valid].long())
+    n_buckets = int(reached.numel())
+    bucket_bytes = int((cnt[reached].clamp(0, cap).long() * 12 + 4).sum())
+    bytes_moved = (Q * (12 + 1 + 4 * nb) + Q * C * (12 + 1 + 4) + Q * 4
+                   + bucket_bytes)
+    ops = 8 * slots
     bound_ms, bound_by = bound(bytes_moved, ops)
-    log(f"  K3 at {what} {(Q, nb, 3, cap)}, C={C}, up to the C+1 nearest: "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.topk "
-        f"{library_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}; "
-        f"{bytes_moved} B, {ops} ops); whole wrapper with its finishing ops "
-        f"{wrapper_ms:.4f} ms")
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=bound_ms, bytes=bytes_moved, ops=ops,
-                wrapper_ms=wrapper_ms)
+    # the previous contract's, from the gathered block (Q, nb, 3, cap) with
+    # its ok bytes to the C+1 nearest distances and points
+    old_bytes = Q * B * 13 + Q * 13 + Q * R * 16
+    old_bound_ms, _ = bound(old_bytes, Q * B * (8 + R))
+    log(f"  K3 at {what}: {Q} rows of {nb} buckets of {cap} slots, C={C}, "
+        f"{n_buckets} distinct buckets reached by valid rows "
+        f"({bucket_bytes} B), {slots} slots taken: kernel "
+        f"{ms:.4f} ms on the card ({paced_ms:.4f} ms paced by the host), "
+        f"plain {plain_ms:.4f} ms, library yardstick {library_ms:.4f} ms; "
+        f"bound {bound_ms:.5f} ms ({bound_by}; {bytes_moved} B, {ops} ops), "
+        f"the previous contract's {old_bound_ms:.5f} ms ({old_bytes} B); the "
+        f"previous route's parts " + ", ".join(
+            f"{k} {v:.4f}" for k, v in previous.items())
+        + f" ms (sum {sum(previous.values()):.4f})")
+    return dict(ms=ms, paced_ms=paced_ms, plain_ms=plain_ms,
+                library_ms=library_ms, bytes=bytes_moved, ops=ops,
+                bound_ms=bound_ms, old_bound_ms=old_bound_ms)
 
 
-def phase_k3_real(slam):
+def _k3_args(query, q_valid, grid):
+    """select_candidates' arguments for one gather of gather_candidates,
+    before C: the bucket ids hashed as it hashes them."""
+    from lins_tpu_torch.ops.grid_nn import _bucket_of, _neighborhood
+
+    bb = _bucket_of(_neighborhood(query, grid)[0], grid.table)
+    return (query.contiguous(), q_valid.contiguous(), bb, grid.cells,
+            grid.cnt)
+
+
+def phase_k3_real(slam, smi):
     """K3 against its plain version on real gathers of the final map of
-    the mapping run, at the surf and corner query shapes; the JSON entry
-    holds the times of one corner + surf gather pair."""
+    the mapping run, at the surf and corner query shapes, bit for bit for
+    both d2C rules; times per gather and per corner + surf pair.  The JSON
+    entry is per launch: the pair's numbers halved."""
+    import torch
+
     from lins_tpu_torch.geom import so3
     from lins_tpu_torch.mapping.mapper import downsample_scan
-    from lins_tpu_torch.ops.grid_nn import gather_neighbourhood
+    from lins_tpu_torch.ops.grid_nn import (_bucket_of, _neighborhood,
+                                            gather_candidates)
 
     log("== 5. K3 on real gathers of the mapping run")
     mapper, args = _mapping_inputs(slam)
@@ -766,29 +861,54 @@ def phase_k3_real(slam):
     C = cfg.s2m_cand
     sc = downsample_scan(*args[3:9], cfg, *mapper.caps, mapper.dtype)
     t, q = st.aft_pos, st.aft_quat
-    err, times = 0.0, []
+    err, times, calls = 0.0, [], []
     for what, pts, ok_q, grid in (
             ("surf", sc.query_surf, sc.query_surf_ok, st.lmap.surf_grid),
             ("corner", sc.query_corner, sc.query_corner_ok,
              st.lmap.corner_grid)):
         query = so3.quat_rotate(q[None], pts) + t
-        cand, ok, _ = gather_neighbourhood(query, grid)
-        k_args = (query.contiguous(), ok_q.contiguous(), cand, ok)
+        k_args = _k3_args(query, ok_q, grid)
         err = max(err, _k3_equal(k_args, C, f"the real {what} gather "
                                  f"({int(ok_q.sum())} valid queries)"))
-        times.append(k3_times(k_args, C, f"the real {what} gather"))
+        times.append(k3_times(k_args, C, f"the real {what} gather",
+                              PREVIOUS_K3_PARTS_MS[what]))
+        calls.append(lambda query=query, ok_q=ok_q, grid=grid:
+                     gather_candidates(query, ok_q, grid, C, True))
+        ids_ms = device_ms(lambda query=query, grid=grid: _bucket_of(
+            _neighborhood(query, grid)[0], grid.table), 10)
+        log(f"  the {what} gather's bucket ids in PyTorch (neighbour cells "
+            f"and hash): {ids_ms:.4f} ms on the card")
     tot = {k: sum(x[k] for x in times) for k in times[0]}
     b_ms, b_by = bound(tot["bytes"], tot["ops"])
-    log(f"  K3 per corner + surf gather pair: kernel {tot['ms']:.4f} ms, "
-        f"plain {tot['plain_ms']:.4f} ms, torch.topk "
-        f"{tot['library_ms']:.4f} ms, bound {b_ms:.5f} ms; whole wrapper "
-        f"{tot['wrapper_ms']:.4f} ms")
+
+    def pair():
+        for c in calls:
+            c()
+
+    # four pairs: more of their ~50 launches would fill the launch queue
+    # inside the card's sleep and wait for it
+    whole_ms, whole_paced = device_ms(pair, 4), cuda_ms(pair, 20)
+    prev = sum(sum(PREVIOUS_K3_PARTS_MS[w].values())
+               for w in ("surf", "corner"))
+    log(f"  K3 per corner + surf gather pair: kernel {tot['ms']:.4f} ms on "
+        f"the card (previous kernel {PREVIOUS_MS['K3 pair']:.4f}; previous "
+        f"mask, gather, kernel and finish {prev:.4f}), plain "
+        f"{tot['plain_ms']:.4f} ms, library yardstick "
+        f"{tot['library_ms']:.4f} ms, bound {b_ms:.5f} ms ({b_by}), the "
+        f"previous contract's {tot['old_bound_ms']:.5f} ms; the whole pair "
+        f"of gather_candidates calls {whole_ms:.4f} ms on the card, "
+        f"{whole_paced:.4f} ms paced by the host (previous wrapper pair "
+        f"{PREVIOUS_MS['K3 wrapper pair']:.4f})")
+    check(tot["ms"] < PREVIOUS_MS["K3 pair"],
+          f"K3 per corner + surf pair faster than the previous kernel alone: "
+          f"{tot['ms']:.4f} < {PREVIOUS_MS['K3 pair']:.4f} ms a pair on {smi}")
+    torch.cuda.synchronize()
     return dict(name="select_candidates", route="cuda",
                 source="lins_tpu_torch/csrc/select_candidates.cu",
                 replaces="lins_tpu/ops/pallas_select.py:82",
-                launches=None, max_abs_err=err, ms=tot["ms"],
-                plain_ms=tot["plain_ms"], bound_ms=b_ms, bound_by=b_by,
-                library_ms=tot["library_ms"])
+                launches=None, max_abs_err=err, ms=tot["ms"] / 2,
+                plain_ms=tot["plain_ms"] / 2, bound_ms=b_ms / 2,
+                bound_by=b_by, library_ms=tot["library_ms"] / 2)
 
 
 def _k6_equal(x, C, what):
@@ -1547,13 +1667,13 @@ def phase_k3_loop(slam, C):
     it, on real gathers: path H's final state, its current keyframe's cloud
     moved by ICP onto the loop candidate's submap, gathered from the
     polish's grid (graph/loop_closure.polish_grid), surf queries and the
-    polish's eight invalid corner queries.  Returns the largest difference
-    of kept distances."""
+    polish's eight invalid corner queries, bit for bit for both d2C rules;
+    the surf gather's times beside the previous route's.  Returns the
+    largest difference of kept distances."""
     import torch
 
     from lins_tpu_torch.geom import so3
     from lins_tpu_torch.graph import loop_closure as lc
-    from lins_tpu_torch.ops.grid_nn import gather_neighbourhood
 
     log("== 6. K3 on the loop polish's real gathers (path H's final state)")
     m = slam.mapper
@@ -1577,12 +1697,16 @@ def phase_k3_loop(slam, C):
             ("surf", src, cloud_ok),
             ("corner", corner, torch.zeros(8, dtype=torch.bool,
                                            device=m.device))):
-        cand, ok, _ = gather_neighbourhood(q, grid)
-        check(tuple(cand.shape) == (q.shape[0], 27, 3, 64),
-              f"the polish's {what} gather is {tuple(cand.shape)}")
-        err = max(err, _k3_equal((q.contiguous(), q_ok.contiguous(), cand,
-                                  ok), C, f"the loop polish's {what} gather "
-                                  f"({int(q_ok.sum())} valid queries)"))
+        args = _k3_args(q, q_ok, grid)
+        shape = (*args[2].shape, *args[3].shape[1:])
+        check(shape == (q.shape[0], 27, 3, 64),
+              f"the polish's {what} gather reads {shape[0]} rows of "
+              f"{shape[1]} buckets of {shape[2]} x {shape[3]}")
+        err = max(err, _k3_equal(args, C, f"the loop polish's {what} gather "
+                                 f"({int(q_ok.sum())} valid queries)"))
+        if what == "surf":
+            k3_times(args, C, "the loop polish's real surf gather",
+                     PREVIOUS_K3_PARTS_MS["polish surf"])
     return err
 
 
@@ -1749,13 +1873,13 @@ def main():
     log(f"  (set-up: {N_SCANS} VLP-16 and {N_SCANS_H} HDL-64 synthetic "
         f"scans in {time.perf_counter() - t0:.1f} s)")
     k1 = phase_k1(cfg, data)
-    k2 = phase_k2(cfg_h, data_h)
+    k2 = phase_k2(cfg_h, data_h, smi)
     k3_err = phase_k3_synthetic(cfg_map.s2m_cand)
     k6 = phase_k6()
     k4, k5 = phase_k45(cfg, data, cfg_h, data_h)
     odo = phase_odometry(cfg, data)
     mp = phase_mapping(cfg_map, data, odo["ps"])
-    k3 = phase_k3_real(mp["slam"])
+    k3 = phase_k3_real(mp["slam"], smi)
     k3["max_abs_err"] = max(k3["max_abs_err"], k3_err)
     pv = phase_path_v(cfg_v, data)
     ph = phase_path_h(cfg_h, data_h)

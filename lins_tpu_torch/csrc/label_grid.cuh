@@ -1,6 +1,7 @@
 // Block body shared by the labelling kernels K1 (label_components.cu) and
 // K2 (label_blocked.cu): the connected components of one L x S grid,
-// computed by one block in shared memory.
+// computed by one block in shared memory (K2 runs it on each 16-row piece
+// of a scan and joins the pieces across its cluster).
 //
 // Contract (lins_tpu/frontend/segmentation.py::label_from_edges):
 //   e_right[i, j]  edge (i,j)-(i,j+1 mod S), wraps at the seam
@@ -36,14 +37,15 @@ inline int grid_smem_bytes(int L, int S) {
   return L * S * (static_cast<int>(sizeof(int32_t)) + 1);
 }
 
-// Label the L x S grid whose masks start at e_right/e_down/eligible and
-// write it to out (all row-major, S columns).  Called by every thread of a
-// block of kThreads threads, with grid_smem_bytes(L, S) of dynamic shared
+// Label the L x S grid whose masks start at e_right/e_down/eligible (all
+// row-major, S columns) in shared memory: on return (after a block-wide
+// barrier) smem holds the n = L*S labels, each the least id in [0, n) of
+// the cell's component or kBig, and the n flag bytes after them.  Called
+// by every thread of a block, with grid_smem_bytes(L, S) of dynamic shared
 // memory at smem.
-__device__ __forceinline__ void label_grid(
+__device__ __forceinline__ void label_grid_shared(
     const uint8_t* __restrict__ e_right, const uint8_t* __restrict__ e_down,
-    const uint8_t* __restrict__ eligible, int32_t* __restrict__ out, int L,
-    int S, int offset, int32_t* smem) {
+    const uint8_t* __restrict__ eligible, int L, int S, int32_t* smem) {
   const int n = L * S;
   int32_t* lab = smem;                                    // n labels
   uint8_t* flags = reinterpret_cast<uint8_t*>(smem + n);  // n flag bytes
@@ -101,9 +103,16 @@ __device__ __forceinline__ void label_grid(
     }
     changed = __syncthreads_or(local);
   }
+}
 
-  for (int c = threadIdx.x; c < n; c += blockDim.x) {
-    const int l = lab[c];
+// label_grid_shared, then out[c] = offset + the label, or kBig.
+__device__ __forceinline__ void label_grid(
+    const uint8_t* __restrict__ e_right, const uint8_t* __restrict__ e_down,
+    const uint8_t* __restrict__ eligible, int32_t* __restrict__ out, int L,
+    int S, int offset, int32_t* smem) {
+  label_grid_shared(e_right, e_down, eligible, L, S, smem);
+  for (int c = threadIdx.x; c < L * S; c += blockDim.x) {
+    const int l = smem[c];
     out[c] = l < kBig ? l + offset : kBig;
   }
 }

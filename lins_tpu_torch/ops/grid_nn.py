@@ -7,8 +7,9 @@ within 1 m, so map points are binned into voxel cells and each query
 gathers candidates from its neighbourhood block only (27 cells, or 8
 supercells), which covers every point within 1 m.  `gather_candidates`
 prunes each block to its nearest C points once per mapping step (kernel K3,
-`ops/select.py`); every Gauss-Newton trip re-ranks that small cache at the
-current pose (`knn_from_candidates`).  Candidates are stored densely per
+`ops/select.py`, which reads the block from the grid in place); every
+Gauss-Newton trip re-ranks that small cache at the current pose
+(`knn_from_candidates`).  Candidates are stored densely per
 bucket as (table, 3, cap) rows.
 """
 from __future__ import annotations
@@ -114,40 +115,23 @@ def gather_candidates(query: torch.Tensor, q_valid: torch.Tensor,
                       grid: HashGrid, C: int, use_pallas: bool = False):
     """One-shot candidate gather + prune to a compact (Q, C, 3) cache.
 
-    The gather reads each query's whole neighbourhood block
-    (`grid.cells[bb]`, (Q, nb, 3, cap)); the nearest-C selection always runs
-    through K3 (`ops/select.select_candidates`; its plain version on the
-    CPU).  `use_pallas` (the config's `use_pallas_select`) only picks the
-    prune bound d2C, as the reference's two paths define it: the first
-    DROPPED distance (kernel path) or the C-th KEPT one (sort path).  Both
-    are sound for the re-gather test of the Gauss-Newton loop
-    (scan2map.stale).
+    Each query's neighbour buckets `bb` (Q, nb) are hashed here; K3
+    (`ops/select.select_candidates`; its plain version on the CPU) reads
+    their points from the grid in place, masks duplicate buckets, slots
+    above a bucket's count and tombstones, and keeps the nearest C.
+    `use_pallas` (the config's `use_pallas_select`) only picks the prune
+    bound d2C, as the reference's two paths define it: the first DROPPED
+    distance (kernel path) or the C-th KEPT one (sort path).  Both are sound
+    for the re-gather test of the Gauss-Newton loop (scan2map.stale).
 
     Returns (cand (Q,C,3), cand_ok (Q,C), d2C (Q,), cover (Q,)).
     """
-    cand, ok, cover = gather_neighbourhood(query, grid)
-    out, cand_ok, _, d2C = select_candidates(query, q_valid, cand, ok, C,
+    nbc, cover = _neighborhood(query, grid)
+    bb = _bucket_of(nbc, grid.table)                           # (Q, nb)
+    out, cand_ok, _, d2C = select_candidates(query, q_valid, bb, grid.cells,
+                                             grid.cnt, C,
                                              first_dropped=use_pallas)
     return out, cand_ok, d2C, cover
-
-
-def gather_neighbourhood(query: torch.Tensor, grid: HashGrid):
-    """Each query's whole neighbourhood block, the input of K3: (cand (Q,
-    nb, 3, cap), ok (Q, nb, cap), cover (Q,)).  `ok` masks slots above a
-    bucket's count and buckets that an earlier neighbour cell of the same
-    query hashed to (they would contribute the same candidates twice)."""
-    dev = query.device
-    nbc, cover = _neighborhood(query, grid)
-    bb = _bucket_of(nbc, grid.table).to(torch.int64)          # (Q, nb)
-    n_off = bb.shape[1]
-    tri = torch.ones((n_off, n_off), dtype=torch.bool,
-                     device=dev).tril(-1)
-    dup = torch.any((bb[:, :, None] == bb[:, None, :]) & tri, dim=-1)
-    cand = grid.cells[bb]                  # (Q, nb, 3, cap) wide-row gather
-    n_in = grid.cnt[bb]
-    ok = ((torch.arange(grid.cap, dtype=torch.int32, device=dev)
-           < n_in[:, :, None]) & ~dup[:, :, None])
-    return cand, ok, cover
 
 
 def knn_from_candidates(p_w: torch.Tensor, q_valid: torch.Tensor,

@@ -19,8 +19,10 @@ reference routes by its TPU's VMEM, `lins_tpu/odometry/estimator.py:
     ::label_components_pallas`) when a whole scan fits one block's shared
     memory: one block per scan, hook + pointer-jump rounds to the fixpoint;
   * K2 (`csrc/label_blocked.cu`, replaces `label_components_blocked`) for
-    taller grids with L a multiple of 16 (HDL-64, OS1-64): one block per
-    16-row block, then an exact seam merge, one block per scan.
+    taller grids with L a multiple of 16, up to 128 rows (HDL-64, OS1-64):
+    one launch, a thread-block cluster per scan, one block per 8- or 16-row
+    piece, the pieces joined across the seams in distributed shared
+    memory.
 On a CUDA tensor the wrapper launches its kernel or raises; there is no
 fallback.  On a CPU tensor it runs the kernel's plain version:
 `label_components_plain` iterates the union-find propagation of
@@ -37,8 +39,10 @@ import torch
 BIG = 2 ** 30
 # shared memory a block may opt in to on Hopper (H100/H200)
 _SMEM_LIMIT = 232448
-# rows of one K2 block (csrc/label_blocked.cu, kRows)
+# rows of one block of the reference's blocked labelling, and the most
+# such blocks K2's cluster takes (the portable cluster size)
 BLOCK_ROWS = 16
+CLUSTER_BLOCKS = 8
 
 
 def _smem_bytes(L: int, S: int) -> int:
@@ -49,16 +53,26 @@ def _smem_bytes(L: int, S: int) -> int:
 
 def route(L: int, S: int) -> str:
     """The kernel that labels an L x S grid: "K1" when it fits one block's
-    shared memory, else "K2" when L is a multiple of 16 and a 16-row block
-    fits; raises ValueError for any other grid."""
+    shared memory, else "K2" when L is a multiple of 16, at most 8 16-row
+    blocks (one cluster) and a 16-row block fits; raises ValueError for any
+    other grid."""
     if _smem_bytes(L, S) <= _SMEM_LIMIT:
         return "K1"
-    if L % BLOCK_ROWS == 0 and _smem_bytes(BLOCK_ROWS, S) <= _SMEM_LIMIT:
+    if (L % BLOCK_ROWS == 0 and L // BLOCK_ROWS <= CLUSTER_BLOCKS
+            and _smem_bytes(BLOCK_ROWS, S) <= _SMEM_LIMIT):
         return "K2"
     raise ValueError(
         f"label_components: a {L}x{S} grid needs {_smem_bytes(L, S)} B of "
         f"shared memory per block (limit {_SMEM_LIMIT}) and is not a stack "
-        f"of {BLOCK_ROWS}-row blocks that fit")
+        f"of at most {CLUSTER_BLOCKS} {BLOCK_ROWS}-row blocks that fit")
+
+
+def piece_rows(L: int) -> int:
+    """Rows of one K2 block for a scan of L rows: 8 where L / 8 blocks
+    still make a portable cluster, else 16.  Every sensor preset routes to
+    K2 with 64 rows (8-row blocks); the 16-row blocks exist only so that
+    80- to 128-row grids, which K2 accepted before, keep working."""
+    return 8 if L // 8 <= CLUSTER_BLOCKS else BLOCK_ROWS
 
 
 def _as_batch(x: torch.Tensor) -> torch.Tensor:
@@ -211,8 +225,8 @@ def _label_blocked(e_right, e_down, eligible):
     """K2, the wrapper `label_components` calls for the grids `route`
     sends to K2.
 
-    CUDA tensors: one call of the K2 kernels over the whole batch (a block
-    per 16-row block, then a merge block per scan), counted in
+    CUDA tensors: one launch over the whole batch (a cluster of
+    L / `piece_rows(L)` blocks per scan), counted in
     `_label_blocked.launches`.  CPU tensors: `label_blocked_plain`.
     """
     L, S = eligible.shape[-2:]
@@ -225,15 +239,28 @@ def _label_blocked(e_right, e_down, eligible):
     K = el.shape[0]
     out = torch.empty(el.shape, dtype=torch.int32, device=el.device)
     if K > 0:
-        parent = torch.empty((K, L * S + 1), dtype=torch.int32,
-                             device=el.device)
-        _call("label_blocked", "label_blocked_launch", er, ed, el, out,
-              parent, K, L, S)
+        _call("label_blocked", "label_blocked_launch", er, ed, el, out, K, L,
+              S, piece_rows(L))
         _label_blocked.launches += 1
     return out[0] if squeeze else out
 
 
 _label_blocked.launches = 0
+
+
+def resident_clusters(L: int, S: int, rows: int) -> int:
+    """How many of K2's clusters (L / rows blocks of rows x S cells) the
+    current card holds at once (cudaOccupancyMaxActiveClusters)."""
+    from lins_tpu_torch.ops import build
+
+    n = ctypes.c_int(-1)
+    fn = build.load("label_blocked").label_blocked_clusters
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    err = fn(L, S, rows, ctypes.byref(n))
+    if err != 0:
+        raise RuntimeError(f"label_blocked_clusters failed: CUDA error {err}")
+    return n.value
 
 
 def label_components(e_right, e_down, eligible):

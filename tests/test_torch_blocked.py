@@ -221,3 +221,13 @@ def test_odometry_64_rows_metrics(odometry_runs, key):
     assert got == want
     if key in ("n_surf", "n_corner"):
         assert min(got) > 20
+
+
+def test_route_refuses_grids_over_one_cluster():
+    """K2 joins a scan's 16-row blocks inside one thread-block cluster of
+    at most 8 blocks: 128 rows go to K2, taller grids are refused, and a
+    64-row scan runs in 8 blocks of 8 rows."""
+    assert tlabel.route(128, 1800) == "K2"
+    assert tlabel.piece_rows(64) == 8 and tlabel.piece_rows(128) == 16
+    with pytest.raises(ValueError, match="at most 8 16-row blocks"):
+        tlabel.route(144, 1800)

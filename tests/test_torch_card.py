@@ -53,8 +53,10 @@ def test_label_kernel_refuses_tall_grids(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(4, 64, 1800), (3, 64, 1024),
-                                   (1, 32, 2000)])
+                                   (1, 32, 2000), (2, 96, 1800),
+                                   (2, 128, 1024)])
 def test_blocked_kernel_matches_plain(cuda_device, shape):
+    """8 blocks of 8 rows a scan up to 64 rows, 16-row blocks above."""
     arrs = [torch.as_tensor(a, device=cuda_device)
             for a in _random_edges(shape, shape[2])]
     before = label._label_blocked.launches
@@ -65,10 +67,30 @@ def test_blocked_kernel_matches_plain(cuda_device, shape):
 
 
 @pytest.mark.cuda
-def test_blocked_kernel_seam_cases(cuda_device):
+def test_blocked_kernel_one_launch(cuda_device):
+    """One K2 call is one kernel on the card: the pieces are joined in the
+    cluster's shared memory, with no second launch and no parent table."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    arrs = [torch.as_tensor(a, device=cuda_device)
+            for a in _random_edges((4, 64, 1800), 7)]
+    label.label_components(*arrs)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        label.label_components(*arrs)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    assert len(names) == 1 and "label_cluster" in names[0], names
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [900, 1024])
+def test_blocked_kernel_seam_cases(cuda_device, S):
     """A column through every seam, a ring segment wrapping the column seam
     joined down across two row seams, an empty and a full grid."""
-    L, S = 64, 900
+    L = 64
     cases = []
     el, ed = np.zeros((L, S), bool), np.zeros((L, S), bool)
     el[:, 7] = True
@@ -151,47 +173,78 @@ def test_chunk_has_no_host_sync(cuda_device):
     assert len(odo.trajectory) == 7
 
 
-def _select_block(device, seed, Q=300, nb=8, cap=64):
-    """A random gathered block with exact ties (duplicates and a 0.25 m
-    lattice), tombstones, an all-invalid row and an invalid query."""
+def _select_grid(device, seed, Q=300, nb=8, cap=64, table=97):
+    """A random map grid and query rows with exact ties (duplicates and a
+    0.25 m lattice), two neighbour cells hashed to one bucket, tombstones
+    at SENTINEL, counts below cap and empty buckets, rows with fewer than
+    C+1 candidates, an all-invalid row and invalid queries: the arguments
+    of select_candidates before C."""
     rng = np.random.default_rng(seed)
-    q = np.round(rng.uniform(-5, 5, (Q, 3)) * 4) / 4
-    cand = np.round((q[:, None, :, None]
-                     + rng.uniform(-2, 2, (Q, nb, 3, cap))) * 4) / 4
-    cand[:, 1, :, :9] = cand[:, 0, :, :9]
-    cand[:, -1, :, cap // 2:cap // 2 + 3] = 1.0e9
-    ok = rng.random((Q, nb, cap)) < 0.8
-    ok[0] = False
+    q = np.round(rng.uniform(-1, 1, (Q, 3)) * 4) / 4
+    cells = np.round(rng.uniform(-2.5, 2.5, (table, 3, cap)) * 4) / 4
+    cells[:, :, 1] = cells[:, :, 0]
+    cnt = rng.integers(0, cap + 1, table)
+    cnt[::7], cnt[1::11] = cap, 0
+    cells.transpose(0, 2, 1)[rng.random((table, cap)) < 0.05] = 1.0e9
+    bb = rng.integers(0, table, (Q, nb))
+    bb[::3, 1] = bb[::3, 0]
+    bb[1:9] = rng.choice(np.flatnonzero(cnt <= 1), (8, nb))
+    bb[0] = np.flatnonzero(cnt == 0)[0]
     qv = rng.random(Q) < 0.9
+    qv[9] = False
     return [torch.as_tensor(a, device=device) for a in
-            (q.astype(np.float32), qv, cand.astype(np.float32), ok)]
+            (q.astype(np.float32), qv, bb.astype(np.int32),
+             cells.astype(np.float32), cnt.astype(np.int32))]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("nb,cap,C", [(8, 64, 32), (27, 216, 32), (2, 9, 17)])
 def test_select_kernel_matches_plain(cuda_device, nb, cap, C):
-    args = _select_block(cuda_device, nb, nb=nb, cap=cap)
+    """K3 (gather, selection and finishing in one launch) bit for bit equal
+    to its plain version, for both d2C rules."""
+    args = _select_grid(cuda_device, nb, nb=nb, cap=cap)
     for first_dropped in (True, False):
         before = select.select_candidates.launches
         got = select.select_candidates(*args, C, first_dropped=first_dropped)
         assert select.select_candidates.launches == before + 1
         want = select.select_candidates_plain(*args, C,
                                               first_dropped=first_dropped)
-        for g, w in zip(got, want):
-            assert torch.equal(g, w)
+        assert torch.equal(got[1], want[1])
+        for k in (0, 2, 3):
+            assert torch.equal(got[k].view(torch.int32),
+                               want[k].view(torch.int32))
+        assert 0 < int(want[1].sum()) < want[1].numel()
 
 
 @pytest.mark.cuda
 def test_select_kernel_refuses_bad_inputs(cuda_device):
-    q, qv, cand, ok = _select_block(cuda_device, 0, Q=8, nb=2, cap=8)
+    q, qv, bb, cells, cnt = _select_grid(cuda_device, 0, Q=16, nb=2, cap=8)
     with pytest.raises(TypeError, match="float32"):
-        select.select_candidates(q.double(), qv, cand.double(), ok, 4)
+        select.select_candidates(q.double(), qv, bb, cells.double(), cnt, 4)
+    with pytest.raises(TypeError, match="int32"):
+        select.select_candidates(q, qv, bb.long(), cells, cnt, 4)
+    with pytest.raises(ValueError, match="shape"):
+        select.select_candidates(q, qv[:-1], bb, cells, cnt, 4)
+    with pytest.raises(ValueError, match="cpu"):
+        select.select_candidates(q, qv, bb.cpu(), cells, cnt, 4)
     with pytest.raises(ValueError, match="C\\+1"):
-        select.select_candidates(q, qv, cand, ok, 16)
+        select.select_candidates(q, qv, bb, cells, cnt, 16)
     with pytest.raises(ValueError, match="contiguous"):
-        select.select_candidates(q, qv, cand.transpose(2, 3).contiguous()
-                                 .transpose(2, 3), ok, 4)
-    # a row longer than the 47 KB of shared memory a block gets unasked
+        select.select_candidates(q, qv, bb, cells.transpose(1, 2)
+                                 .contiguous().transpose(1, 2), cnt, 4)
+    with pytest.raises(ValueError, match="1 to 32 buckets"):
+        select.select_candidates(q, qv, bb.repeat(1, 17), cells, cnt, 4)
+    # the launcher's own refusals, with no launch: a sort buffer over 256
+    # words, a block over the card's shared memory
+    before = select.select_candidates.launches
+    wide = _select_grid(cuda_device, 1, Q=16, nb=2, cap=200, table=11)
+    with pytest.raises(ValueError, match="refused"):
+        select.select_candidates(*wide, 300)
+    big = _select_grid(cuda_device, 2, Q=16, nb=32, cap=2000, table=11)
+    with pytest.raises(ValueError, match="refused"):
+        select.select_candidates(*big, 4)
+    assert select.select_candidates.launches == before
+    # a row longer than the 47 KB of shared memory a K6 block gets unasked
     long_row = torch.zeros((1, 12100), device=cuda_device)
     with pytest.raises(ValueError, match="shared memory"):
         select.topk_smallest(long_row, 4)

@@ -254,3 +254,41 @@ def test_plane_fit_float32_matches_float64():
     assert torch.equal(ok32, ok64)
     np.testing.assert_allclose(c32.numpy(), c64.numpy(), rtol=0, atol=1e-3)
     np.testing.assert_allclose(r32.numpy(), r64.numpy(), rtol=0, atol=1e-3)
+
+
+def test_line_fit_float32_matches_float64():
+    """The scan-to-map line fit (`corner_residuals`) decides the same
+    matches in float32 as in float64: tight 5-point lines 5-40 m from the
+    origin (linear) and 5-point blobs and planes (not linear), so the test
+    w[2] > 3 w[1] goes both ways; coefficients and residuals within 1e-3."""
+    from lins_tpu_torch.mapping.scan2map import corner_residuals
+
+    rng = np.random.default_rng(1)
+    Q = 2000
+    center = rng.normal(size=(Q, 3))
+    center *= (rng.uniform(5, 40, (Q, 1))
+               / np.linalg.norm(center, axis=1, keepdims=True))
+    d = rng.normal(size=(Q, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    e = np.cross(d, rng.normal(size=(Q, 3)))
+    e /= np.linalg.norm(e, axis=1, keepdims=True)
+    t = rng.uniform(-0.4, 0.4, (Q, 5, 1))
+    nn = (center[:, None] + t * d[:, None]
+          + rng.normal(scale=0.01, size=(Q, 5, 3)))
+    blob = rng.random(Q) < 0.3                 # spread in 3D: not linear
+    nn[blob] = center[blob, None] + rng.normal(scale=0.25,
+                                               size=(int(blob.sum()), 5, 3))
+    flat = ~blob & (rng.random(Q) < 0.15)      # spread in a plane
+    s = rng.uniform(-0.4, 0.4, (int(flat.sum()), 5, 1))
+    nn[flat] += s * e[flat, None]
+    p = center + rng.uniform(0.05, 0.4, (Q, 1)) * e
+    d2 = np.sort(np.sum((nn - p[:, None]) ** 2, axis=2), axis=1)
+    valid = torch.ones(Q, dtype=torch.bool)
+    c64, r64, ok64 = corner_residuals(_t(p), _t(nn), _t(d2), valid)
+    c32, r32, ok32 = corner_residuals(_t(p).float(), _t(nn).float(),
+                                      _t(d2).float(), valid)
+    assert c32.dtype == torch.float32
+    assert 0.3 < ok64.float().mean() < 0.9
+    assert torch.equal(ok32, ok64)
+    np.testing.assert_allclose(c32.numpy(), c64.numpy(), rtol=0, atol=1e-3)
+    np.testing.assert_allclose(r32.numpy(), r64.numpy(), rtol=0, atol=1e-3)

@@ -1,7 +1,9 @@
-"""K3 and K6 on the CPU: the port's plain candidate selection against the
-reference's TPU kernel run in interpret mode, `gather_candidates` against
-the reference for both values of the selection flag, and the values-only
-top-k against the canary's own check (`np.sort(d2)[:, :C]`).
+"""K3 and K6 on the CPU: the port's plain selection of a gathered block
+against the reference's TPU kernel run in interpret mode, `gather_candidates`
+(K3's fused gather and selection) against the reference for both values of
+the selection flag, on voxel grids and on hand-made grids whose neighbour
+cells collide in the hash, and the values-only top-k against the canary's
+own check (`np.sort(d2)[:, :C]`).
 
 Inputs are float32, as on the card (the reference kernel's fori_loop
 carries float32 and refuses float64 inputs).  Kept sets and their order
@@ -64,7 +66,7 @@ def test_plain_matches_tpu_kernel(seed, nb, cap, C):
         jnp.asarray(q), jnp.asarray(qv), jnp.asarray(fc[:, 0]),
         jnp.asarray(fc[:, 1]), jnp.asarray(fc[:, 2]),
         jnp.asarray(ok.reshape(Q, -1)), C, interpret=True)
-    g_cand, g_ok, g_d2k, g_d2C = tsel.select_candidates(
+    g_cand, g_ok, g_d2k, g_d2C = tsel.select_block_plain(
         _t(q), _t(qv), _t(cand), _t(ok), C, first_dropped=True)
     np.testing.assert_array_equal(g_ok.numpy(), np.asarray(w_ok))
     np.testing.assert_allclose(g_cand.numpy(), np.asarray(w_cand), rtol=0,
@@ -115,13 +117,59 @@ def test_gather_candidates(nb, use_pallas):
                                atol=1e-6)
 
 
+def _colliding_grid(nb, seed=11, table=13, cap=24, Q=64):
+    """A hand-made grid of `table` buckets, so small that neighbour cells
+    of one query hash to one bucket; counts below cap, empty buckets and
+    tombstones at the voxel map's SENTINEL among the counted slots."""
+    rng = np.random.default_rng(seed)
+    cells = rng.uniform(-3, 3, (table, 3, cap)).astype(np.float32)
+    cnt = rng.integers(0, cap + 1, table).astype(np.int32)
+    cnt[0], cnt[1] = 0, cap
+    tomb = (rng.random((table, cap)) < 0.1)[:, None, :].repeat(3, 1)
+    cells[tomb] = 1.0e9
+    q = rng.uniform(-2, 2, (Q, 3)).astype(np.float32)
+    qv = rng.random(Q) < 0.9
+    grid = dict(cells=cells, cnt=cnt, cell=0.8, table=table, cap=cap, nb=nb)
+    return (jgrid.HashGrid(cells=jnp.asarray(cells), cnt=jnp.asarray(cnt),
+                           cell=0.8, table=table, cap=cap, nb=nb),
+            tgrid.HashGrid(**{k: _t(v) if isinstance(v, np.ndarray) else v
+                              for k, v in grid.items()}), q, qv)
+
+
+@pytest.mark.parametrize("nb", [8, 27])
+@pytest.mark.parametrize("use_pallas", [False, True])
+def test_fused_gather_colliding_buckets(nb, use_pallas):
+    """K3's plain version reads the grid at the hashed buckets itself:
+    against the reference's gather (its TPU kernel in interpret mode, or
+    its sort path) where neighbour cells share a bucket, counts stop below
+    cap and tombstones sit among the counted slots."""
+    jg, tg, q, qv = _colliding_grid(nb)
+    nbc, _ = tgrid._neighborhood(_t(q), tg)
+    bb = tgrid._bucket_of(nbc, tg.table)
+    dup = (bb[:, :, None] == bb[:, None, :]).sum(-1) > 1
+    assert dup.any(1).float().mean() > 0.5           # collisions are common
+    C = 16
+    w = jgrid.gather_candidates(jnp.asarray(q), jnp.asarray(qv), jg, C,
+                                use_pallas=use_pallas, interpret=True)
+    before = tsel.select_candidates_plain.calls
+    g = tgrid.gather_candidates(_t(q), _t(qv), tg, C, use_pallas=use_pallas)
+    assert tsel.select_candidates_plain.calls == before + 1
+    np.testing.assert_array_equal(g[1].numpy(), np.asarray(w[1]))
+    assert 0 < int(g[1].sum()) < g[1].numel()
+    np.testing.assert_allclose(g[0].numpy(), np.asarray(w[0]), rtol=0,
+                               atol=1e-6)
+    np.testing.assert_allclose(g[2].numpy(), np.asarray(w[2]), rtol=1e-6)
+    np.testing.assert_allclose(g[3].numpy(), np.asarray(w[3]), rtol=0,
+                               atol=1e-6)
+
+
 def test_d2c_by_flag():
     """One call holds both bounds: the first dropped distance is >= the
     C-th kept one."""
     q, qv, cand, ok = _block_case(3)
     args = (_t(q), _t(qv), _t(cand), _t(ok), 16)
-    _, _, d2k, kept = tsel.select_candidates(*args, first_dropped=False)
-    _, _, _, dropped = tsel.select_candidates(*args, first_dropped=True)
+    _, _, d2k, kept = tsel.select_block_plain(*args, first_dropped=False)
+    _, _, _, dropped = tsel.select_block_plain(*args, first_dropped=True)
     np.testing.assert_array_equal(kept.numpy(), d2k[:, -1].numpy())
     both = torch.isfinite(kept) & torch.isfinite(dropped)
     assert both.sum() > 50
