@@ -9,13 +9,21 @@ Phases, in order; any failure exits non-zero:
   1. device      the card's name and power limit (nvidia-smi), TF32 flags
   2. build       nvcc of every kernel source, all started together
   3. kernels     each hand-written kernel against its plain PyTorch version
-                 on the card, exactly: K1 on random graphs, edge cases and a
-                 real VLP-16 chunk; K2 (one launch, a thread-block cluster
-                 a scan) on random 64x1800 graphs, seam and wrap cases,
+                 on the card, exactly: K1 (one launch, a thread-block
+                 cluster a scan, one union-find) on random graphs, edge
+                 cases, cases across its piece seams (a snake, a comb, runs
+                 wrapping on the pieces' first and last rows, every edge
+                 on), 13x1800, TINY's 8x450, one scan, no scan, a real
+                 VLP-16 chunk and one real scan, with its layout, one
+                 launch a call and faster than its previous body (the
+                 chunk, three timings, and one scan); K2 (one launch, a
+                 thread-block cluster a scan) on random 64x1800 graphs,
+                 seam and wrap cases,
                  empty and full grids at 64x1800 and 64x1024, a 64x1024
                  OS1-64 grid and a real HDL-64 chunk, with the clusters the
-                 card holds at once, one launch a call and faster than the
-                 previous two-launch design; K3 (the bucket gather, the
+                 card holds at once, one launch a call (K1's and K2's in
+                 one profiler session) and faster than the previous
+                 two-launch design; K3 (the bucket gather, the
                  selection and the finishing ops in one launch) bit for bit
                  on random grids with lattice ties, colliding buckets,
                  tombstones, short and empty buckets, invalid queries and
@@ -35,7 +43,8 @@ Phases, in order; any failure exits non-zero:
                  RUNNING VLP-16 scan and one HDL-64 scan
   4. odometry    LinsSlam(VLP16, max_points=28800, use_pallas=True,
                  enable_mapping=False).run_replay over a synthetic gentle
-                 sequence (6 + 4x32 scans at 1.5 m/s): label launches,
+                 sequence (6 + 4x32 scans at 1.5 m/s): label launches (and
+                 K1's by scans a launch, for its lost time),
                  K4 and K5 launches (>= 2 x num_iter per RUNNING scan: the
                  IESKF trips and the GN fallback's), finite poses, odometry
                  ATE <= 0.25 m, no plain labelling or association (on every
@@ -141,10 +150,12 @@ K45_TOL = 2 * 512 * 2.0 ** -24
 # the calls enqueued while the card slept (gates); K3 of one block a row
 # over the gathered block, per corner + surf pair of the window map's
 # final gathers (gate), and its whole wrapper with the finishing ops; K2
-# of two launches, per 32-scan HDL-64 chunk (gate); K1 per 32-scan VLP-16
-# chunk (logged beside this run's)
+# of two launches, per 32-scan HDL-64 chunk (gate); K1 of one block a scan
+# (hook + jump rounds), per 32-scan VLP-16 chunk (gate) and on one real
+# scan (with the card asleep while the host enqueues)
 PREVIOUS_MS = {"K4+K5 pair": 0.04998, "K6": 0.36348, "K3 pair": 0.1957,
-               "K3 wrapper pair": 0.3433, "K2": 0.3206, "K1": 0.0716}
+               "K3 wrapper pair": 0.3433, "K2": 0.3206, "K1": 0.0716,
+               "K1 scan": 0.0544}
 # the previous K3 route on the card, part by part, per gather (ms; the
 # bucket ids alone were paced by the host's enqueue and are left out): the
 # duplicate mask, cells[bb], cnt[bb] and ok; the kernel; the finishing ops
@@ -506,9 +517,49 @@ def _edge_cases():
     return cases
 
 
+def _k1_seam_cases(S):
+    """Cases aimed at K1's piece seams, each (name, e_right, e_down,
+    eligible) at 16 x S: a snake of vertical runs through all 16 rows at
+    every other column, joined alternately in the last and the first row; a
+    comb whose teeth (every third column) join only in the last row; runs
+    that wrap from column S-1 to 0 on the first and last rows of K1's
+    pieces (of 2 or 4 rows), those of rows 3 and 4 joined down across a
+    seam; and every
+    cell eligible with every edge on (the last row's e_down included, which
+    the contract ignores)."""
+    L = 16
+    z = np.zeros((L, S), bool)
+    cases = []
+    el, er, ed = z.copy(), z.copy(), z.copy()
+    cols = range(0, S - 1, 2)
+    for k, c in enumerate(cols):
+        el[:, c] = True
+        ed[:-1, c] = True
+        if c + 2 < S - 1:
+            row = L - 1 if k % 2 == 0 else 0
+            el[row, c:c + 3] = True
+            er[row, c:c + 2] = True
+    cases.append(("snake", er, ed, el))
+    el, er, ed = z.copy(), z.copy(), z.copy()
+    el[:, ::3] = True
+    ed[:-1, ::3] = True
+    el[L - 1] = er[L - 1] = True
+    cases.append(("comb", er, ed, el))
+    el, er, ed = z.copy(), z.copy(), z.copy()
+    for r in (0, 3, 4, 7, 8, 11, 12, 15):
+        el[r, :3] = el[r, -3:] = True
+        er[r, :2] = er[r, -3:] = True
+    ed[3, 1] = True
+    cases.append(("wrap_on_piece_rows", er, ed, el))
+    full = np.ones((L, S), bool)
+    cases.append(("all_on", full, full.copy(), full.copy()))
+    return cases
+
+
 def phase_k1(cfg, data):
     """K1 against its plain version on the card; returns its JSON entry
-    (launches filled in by the odometry phase)."""
+    (launches filled in by the main-path runs) and its time on one real
+    scan."""
     import torch
 
     from lins_tpu_torch.odometry.estimator import scan_pre_vmap
@@ -516,6 +567,13 @@ def phase_k1(cfg, data):
 
     log("== 3. kernels: K1 label_components")
     dev = torch.device("cuda")
+    for K, L, S in ((K_CHUNK, 16, 1800), (1, 16, 1800), (K_CHUNK, 13, 1800),
+                    (K_CHUNK, 8, 450)):
+        lay = label.k1_layout(K, L, S)
+        log(f"  K1 on {K} scans of {L}x{S}: {lay['pieces']} blocks of "
+            f"{lay['rows']} rows a scan, {lay['threads']} threads and "
+            f"{lay['smem']} B of shared memory a block; the card holds "
+            f"{lay['clusters']} such clusters at once")
     cases = []
     for seed in range(3):
         rng = np.random.default_rng(seed)
@@ -525,6 +583,15 @@ def phase_k1(cfg, data):
                   *_random_graph(np.random.default_rng(3),
                                  (K_CHUNK, 16, 1800), False)))
     cases += _edge_cases()
+    cases += _k1_seam_cases(1800)
+    # rows that 8 pieces do not divide, TINY's 8 x 450 (S not a multiple of
+    # 4: byte loads), one scan and none
+    for name, shape in (("random_13_rows", (K_CHUNK, 13, 1800)),
+                        ("random_tiny", (K_CHUNK, 8, 450)),
+                        ("random_one_scan", (1, 16, 1800)),
+                        ("no_scan", (0, 16, 1800))):
+        cases.append((name, *_random_graph(np.random.default_rng(5), shape,
+                                           True)))
     cases = [(name, *(torch.as_tensor(a, device=dev) for a in arrs))
              for name, *arrs in cases]
     # a real chunk of the main path: scans 2..33 through frontend_pre
@@ -533,24 +600,33 @@ def phase_k1(cfg, data):
                           device=dev)
     pre_k = scan_pre_vmap(xyz_k, n_k, cfg)
     real = (pre_k["e_right"], pre_k["e_down"], pre_k["eligible"])
-    cases.append(("real_chunk", *real))
+    scan = tuple(t[0] for t in real)
+    cases += [("real_chunk", *real), ("real_scan", *scan)]
 
     max_err = 0
     for name, er, ed, el in cases:
+        before = label.label_components.launches
         got = label.label_components(er, ed, el)
         torch.cuda.synchronize()
+        n_scans = el.shape[0] if el.dim() == 3 else 1
+        check(label.label_components.launches == before + (n_scans > 0),
+              f"one K1 launch for {name}")
         want = label.label_components_plain(er, ed, el)
-        err = int((got.long() - want.long()).abs().max())
-        max_err = max(max_err, err)
+        if want.numel():
+            err = int((got.long() - want.long()).abs().max())
+            max_err = max(max_err, err)
         check(torch.equal(got, want),
               f"K1 == plain on {name} {tuple(el.shape)} "
               f"({int(el.sum())} eligible cells, "
               f"{int(torch.unique(want[el.bool()]).numel())} components)")
 
-    # three timings, so that the noise shows beside the previous body's
-    runs = sorted(cuda_ms(lambda: label.label_components(*real), 50)
+    # three timings of the chunk, so that the noise shows beside the
+    # previous body's, and one of a single scan; each with the card asleep
+    # while the host enqueues, as the kernel is shorter than its enqueue
+    runs = sorted(device_ms(lambda: label.label_components(*real), 50)
                   for _ in range(3))
     ms = runs[1]
+    scan_ms = device_ms(lambda: label.label_components(*scan), 50)
     plain_ms = cuda_ms(lambda: label.label_components_plain(*real), 3)
     K, L, S = real[2].shape
     cells = K * L * S
@@ -558,16 +634,23 @@ def phase_k1(cfg, data):
     # one min per cell and edge direction
     bytes_moved = 3 * cells + 4 * cells
     bound_ms, bound_by = bound(bytes_moved, 4 * cells)
+    scan_bound_ms, _ = bound(bytes_moved // K, 4 * cells // K)
     log(f"  K1 label_components ({K},{L},{S}): kernel {ms:.4f} ms (three "
         f"timings {', '.join(f'{t:.4f}' for t in runs)}; the previous "
-        f"label_grid.cuh {PREVIOUS_MS['K1']:.4f}), plain {plain_ms:.4f} ms, "
-        f"bound {bound_ms:.5f} ms ({bytes_moved} B)")
+        f"body, one block a scan, {PREVIOUS_MS['K1']:.4f}), plain "
+        f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bytes_moved} B)")
+    log(f"  K1 on one real scan (1,{L},{S}): kernel {scan_ms:.4f} ms (the "
+        f"previous body {PREVIOUS_MS['K1 scan']:.4f}), bound "
+        f"{scan_bound_ms:.6f} ms")
+    check(ms < PREVIOUS_MS["K1"], f"K1 on the real chunk faster than the "
+          f"previous body: {ms:.4f} < {PREVIOUS_MS['K1']:.4f} ms")
     return dict(name="label_components", route="cuda",
                 source="lins_tpu_torch/csrc/label_components.cu",
                 replaces="lins_tpu/ops/pallas_label.py:118",
                 launches=None, max_abs_err=max_err, ms=ms,
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                library_ms=None)
+                library_ms=None), dict(ms=scan_ms, bound_ms=scan_bound_ms,
+                                       real=real)
 
 
 def _k2_edge_cases(S):
@@ -594,9 +677,12 @@ def _k2_edge_cases(S):
     return cases
 
 
-def phase_k2(cfg_h, data_h, smi):
+def phase_k2(cfg_h, data_h, smi, k1_real):
     """K2 against its plain version on the card; returns its JSON entry
-    (launches filled in by path H)."""
+    (launches filled in by path H).  Also checks that one K1 call (on
+    `k1_real`, the real VLP-16 chunk) and one K2 call are one device launch
+    each, in one profiler session: in later sessions of a process the
+    profiler has recorded no launch of these kernels."""
     import torch
 
     from lins_tpu_torch.odometry.estimator import scan_pre_vmap
@@ -653,9 +739,14 @@ def phase_k2(cfg_h, data_h, smi):
                       label.label_components_plain(*real)),
           "plain K2 == plain K1 on the real HDL-64 chunk")
 
-    prof, _ = profile_call(lambda: label.label_components(*real))
-    check(prof["launches"] == 1, f"one K2 call is {prof['launches']} device "
-          f"launch(es) on the real chunk: {prof['top']}")
+    prof, _ = profile_call(lambda: (label.label_components(*k1_real),
+                                    label.label_components(*real)))
+    names = [name for name, _ in prof["top"]]
+    check(prof["launches"] == 2
+          and sum("label_union_find" in n for n in names) == 1
+          and sum("label_cluster" in n for n in names) == 1,
+          f"one K1 call and one K2 call are {prof['launches']} device "
+          f"launches, one of each kernel, on the real chunks: {prof['top']}")
     ms = cuda_ms(lambda: label.label_components(*real), 50)
     plain_ms = cuda_ms(lambda: label.label_blocked_plain(*real), 3)
     K, L, S = real[2].shape
@@ -1321,6 +1412,7 @@ def _reset_counts():
                select.select_candidates, select.topk_smallest,
                assoc.surf_normal_equations, assoc.corner_normal_equations):
         fn.launches = 0
+    label.label_components.batches = collections.Counter()
     for fn in (label.label_components_plain, label.label_blocked_plain,
                select.select_candidates_plain, select.topk_smallest_plain,
                assoc.surf_normal_equations_plain,
@@ -1332,6 +1424,7 @@ def _counts():
     from lins_tpu_torch.ops import assoc, label, select
 
     return dict(label=label.label_components.launches,
+                label_batches=dict(label.label_components.batches),
                 label_blocked=label._label_blocked.launches,
                 label_plain=label.label_components_plain.calls,
                 label_blocked_plain=label.label_blocked_plain.calls,
@@ -1872,8 +1965,8 @@ def main():
     data_h = generate_sequence(cfg_h, n_scans=N_SCANS_H, **SEQ_H)
     log(f"  (set-up: {N_SCANS} VLP-16 and {N_SCANS_H} HDL-64 synthetic "
         f"scans in {time.perf_counter() - t0:.1f} s)")
-    k1 = phase_k1(cfg, data)
-    k2 = phase_k2(cfg_h, data_h, smi)
+    k1, k1_scan = phase_k1(cfg, data)
+    k2 = phase_k2(cfg_h, data_h, smi, k1_scan.pop("real"))
     k3_err = phase_k3_synthetic(cfg_map.s2m_cand)
     k6 = phase_k6()
     k4, k5 = phase_k45(cfg, data, cfg_h, data_h)
@@ -1900,6 +1993,18 @@ def main():
         f"{r['counts']['k5']} K6 {r['counts']['topk']}"
         for name, r in runs.items()))
     check(k6["launches"] == 0, "K6 launched 0 times on the main paths")
+    # K1's lost time, launch by launch: a 32-scan chunk at the chunk's time
+    # and bound, a streamed scan at one scan's
+    batches = sum((collections.Counter(r["counts"]["label_batches"])
+                   for r in runs.values()), collections.Counter())
+    per = {K_CHUNK: (k1["ms"], k1["bound_ms"]),
+           1: (k1_scan["ms"], k1_scan["bound_ms"])}
+    check(set(batches) <= set(per), f"K1 launched only on chunks of "
+          f"{K_CHUNK} scans and on single scans: {dict(batches)}")
+    lost = sum(n * (per[K][0] - per[K][1]) for K, n in batches.items())
+    log("  K1 launches by scans a launch: " + ", ".join(
+        f"{n} x {K}" for K, n in sorted(batches.items())) + f"; lost "
+        f"{lost:.4f} ms (launches x (ms - bound))")
     attempt, solve, attempt_out, solved = phase_profiles(
         cfg, data, mp["slam"], ph["slam"])
     k3["max_abs_err"] = max(k3["max_abs_err"],

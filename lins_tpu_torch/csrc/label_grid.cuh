@@ -1,7 +1,8 @@
-// Block body shared by the labelling kernels K1 (label_components.cu) and
-// K2 (label_blocked.cu): the connected components of one L x S grid,
-// computed by one block in shared memory (K2 runs it on each 16-row piece
-// of a scan and joins the pieces across its cluster).
+// Block body of the labelling kernel K2 (label_blocked.cu): the connected
+// components of one L x S grid, computed by one block in shared memory by
+// hook + pointer-jump rounds (K2 runs it on each 8- or 16-row piece of a
+// scan and joins the pieces across its cluster).  K1
+// (label_components.cu) has its own body: one union-find pass, no rounds.
 //
 // Contract (lins_tpu/frontend/segmentation.py::label_from_edges):
 //   e_right[i, j]  edge (i,j)-(i,j+1 mod S), wraps at the seam

@@ -17,12 +17,14 @@ reference routes by its TPU's VMEM, `lins_tpu/odometry/estimator.py:
 241-286`; labels are exact either way, so the outputs are the same):
   * K1 (`csrc/label_components.cu`, replaces `lins_tpu/ops/pallas_label.py
     ::label_components_pallas`) when a whole scan fits one block's shared
-    memory: one block per scan, hook + pointer-jump rounds to the fixpoint;
+    memory: one launch, a thread-block cluster per scan of up to 8 blocks
+    of whole rows, one union-find over the cluster's distributed shared
+    memory (init, one union pass, one compression; no rounds);
   * K2 (`csrc/label_blocked.cu`, replaces `label_components_blocked`) for
     taller grids with L a multiple of 16, up to 128 rows (HDL-64, OS1-64):
     one launch, a thread-block cluster per scan, one block per 8- or 16-row
-    piece, the pieces joined across the seams in distributed shared
-    memory.
+    piece (hook + pointer-jump rounds in each piece, `csrc/label_grid.cuh`),
+    the pieces joined across the seams in distributed shared memory.
 On a CUDA tensor the wrapper launches its kernel or raises; there is no
 fallback.  On a CPU tensor it runs the kernel's plain version:
 `label_components_plain` iterates the union-find propagation of
@@ -32,6 +34,7 @@ reference iterated to its fixpoint).
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
@@ -46,14 +49,17 @@ CLUSTER_BLOCKS = 8
 
 
 def _smem_bytes(L: int, S: int) -> int:
-    """Shared memory of one block labelling an L x S grid: an int32 label
-    and a flag byte per cell (csrc/label_grid.cuh)."""
+    """Shared memory of one block of `csrc/label_grid.cuh` labelling an
+    L x S grid (an int32 label and a flag byte per cell): the bound `route`
+    sends to K1, and each of K2's pieces must meet."""
     return L * S * 5
 
 
 def route(L: int, S: int) -> str:
-    """The kernel that labels an L x S grid: "K1" when it fits one block's
-    shared memory, else "K2" when L is a multiple of 16, at most 8 16-row
+    """The kernel that labels an L x S grid: "K1" when the grid fits one
+    block's shared memory (K1 spreads it over a cluster, but keeps this
+    bound of the body it replaced, so that the routing does not change),
+    else "K2" when L is a multiple of 16, at most 8 16-row
     blocks (one cluster) and a 16-row block fits; raises ValueError for any
     other grid."""
     if _smem_bytes(L, S) <= _SMEM_LIMIT:
@@ -208,7 +214,9 @@ def _checked(name, e_right, e_down, eligible):
 
 def _call(lib_name, fn_name, *args):
     """Launch a kernel through its library's C function (pointers and the
-    stream as void*, sizes as int) and raise on a CUDA error."""
+    stream as void*, sizes as int); raise ValueError when the launcher
+    refused the grid (-1, nothing launched), RuntimeError on a CUDA
+    error."""
     from lins_tpu_torch.ops import build
 
     fn = getattr(build.load(lib_name), fn_name)
@@ -217,6 +225,9 @@ def _call(lib_name, fn_name, *args):
     fn.restype = ctypes.c_int
     err = fn(*(a if isinstance(a, int) else a.data_ptr() for a in args),
              torch.cuda.current_stream(args[0].device).cuda_stream)
+    if err == -1:
+        raise ValueError(f"{fn_name}: refused by its launcher: "
+                         f"{tuple(a for a in args if isinstance(a, int))}")
     if err != 0:
         raise RuntimeError(f"{fn_name} failed: CUDA error {err}")
 
@@ -263,12 +274,33 @@ def resident_clusters(L: int, S: int, rows: int) -> int:
     return n.value
 
 
+def k1_layout(K: int, L: int, S: int) -> dict:
+    """K1's layout for K scans of L x S cells, as its launcher picks it:
+    blocks a scan (`pieces`, the cluster), `rows` a block, `threads` and
+    shared memory bytes (`smem`) a block, and how many such clusters the
+    current card holds at once (`clusters`, cudaOccupancyMaxActiveClusters;
+    the launcher halves the threads while it is under K)."""
+    from lins_tpu_torch.ops import build
+
+    vals = [ctypes.c_int(-1) for _ in range(5)]
+    fn = build.load("label_components").label_components_layout
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 5
+    fn.restype = ctypes.c_int
+    err = fn(K, L, S, *(ctypes.byref(v) for v in vals))
+    if err != 0:
+        raise RuntimeError(f"label_components_layout failed: error {err}")
+    return dict(zip(("pieces", "rows", "threads", "smem", "clusters"),
+                    (v.value for v in vals)))
+
+
 def label_components(e_right, e_down, eligible):
     """Connected-component labels of (L, S) or (K, L, S) edge masks, int32,
     by the kernel `route(L, S)` picks.
 
-    K1 on CUDA tensors: one launch over the whole batch (one block per
-    scan), counted in `label_components.launches`; K2 is counted in
+    K1 on CUDA tensors: one launch over the whole batch (a cluster of
+    `k1_layout(K, L, S)["pieces"]` blocks per scan; none for K = 0), counted
+    in `label_components.launches` and, by its K, in
+    `label_components.batches`; K2 is counted in
     `_label_blocked.launches`.  CPU tensors: the picked kernel's plain
     version.
     """
@@ -285,7 +317,9 @@ def label_components(e_right, e_down, eligible):
         _call("label_components", "label_components_launch", er, ed, el, out,
               K, L, S)
         label_components.launches += 1
+        label_components.batches[K] += 1
     return out[0] if squeeze else out
 
 
 label_components.launches = 0
+label_components.batches = collections.Counter()

@@ -5,6 +5,11 @@ package, so it also runs where JAX is not installed:
     python -m pytest --noconftest tests/test_torch_card.py -q
 
 (`--noconftest`: tests/conftest.py configures JAX for the CPU tests.)"""
+import json
+import os
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -31,14 +36,116 @@ def _random_edges(shape, seed):
     return er, ed, el
 
 
+def _seam_edges(kind, S=1800):
+    """K1's piece seams at 16 x S (8 blocks of 2 rows a scan): a snake of
+    vertical runs joined alternately in the last and first row, a comb
+    whose teeth join only in the last row, runs wrapping from column S-1 to
+    0 on each piece's first and last row (rows 3 and 4 joined), and every
+    cell eligible with every edge on."""
+    L = 16
+    el, er, ed = (np.zeros((L, S), bool) for _ in range(3))
+    if kind == "snake":
+        for k, c in enumerate(range(0, S - 1, 2)):
+            el[:, c] = True
+            ed[:-1, c] = True
+            if c + 2 < S - 1:
+                row = L - 1 if k % 2 == 0 else 0
+                el[row, c:c + 3] = True
+                er[row, c:c + 2] = True
+    elif kind == "comb":
+        el[:, ::3] = True
+        ed[:-1, ::3] = True
+        el[L - 1] = er[L - 1] = True
+    elif kind == "wrap":
+        for r in (0, 3, 4, 7, 8, 11, 12, 15):
+            el[r, :3] = el[r, -3:] = True
+            er[r, :2] = er[r, -3:] = True
+        ed[3, 1] = True
+    else:
+        el[:], er[:], ed[:] = True, True, True
+    return er, ed, el
+
+
+# random graphs at the main path's and other routed shapes (rows that 8
+# blocks do not divide, TINY's 8 x 450 and S not a multiple of 4, one scan
+# and none), and the piece-seam cases
+LABEL_CASES = {
+    "random_8x16x1800": lambda: _random_edges((8, 16, 1800), 0),
+    "random_13_rows": lambda: _random_edges((4, 13, 1800), 1),
+    "random_tiny_8x450": lambda: _random_edges((4, 8, 450), 2),
+    "random_5x31": lambda: _random_edges((3, 5, 31), 3),
+    "one_scan": lambda: _random_edges((16, 1800), 4),
+    "no_scan": lambda: _random_edges((0, 16, 1800), 5),
+    "snake": lambda: _seam_edges("snake"),
+    "comb": lambda: _seam_edges("comb"),
+    "wrap_on_piece_rows": lambda: _seam_edges("wrap"),
+    "all_on": lambda: _seam_edges("all_on"),
+}
+
+
 @pytest.mark.cuda
-def test_label_kernel_matches_plain(cuda_device):
+@pytest.mark.parametrize("case", sorted(LABEL_CASES))
+def test_label_kernel_matches_plain(cuda_device, case):
     arrs = [torch.as_tensor(a, device=cuda_device)
-            for a in _random_edges((8, 16, 1800), 0)]
+            for a in LABEL_CASES[case]()]
+    scans = arrs[2].shape[0] if arrs[2].dim() == 3 else 1
     before = label.label_components.launches
     got = label.label_components(*arrs)
-    assert label.label_components.launches == before + 1
+    assert label.label_components.launches == before + (scans > 0)
     assert torch.equal(got, label.label_components_plain(*arrs))
+
+
+def _launched_kernels(shape, seed):
+    """Names of the kernels one `label_components` call launches on random
+    masks of `shape`, from torch.profiler in a fresh process: in a process
+    that has profiled before, the profiler has recorded no launch of the
+    port's own kernels."""
+    code = f"""
+import json, sys
+import numpy as np, torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+from lins_tpu_torch.ops import label
+rng = np.random.default_rng({seed})
+el = rng.random({shape!r}) < 0.7
+er = (rng.random({shape!r}) < 0.55) & el
+ed = (rng.random({shape!r}) < 0.55) & el
+arrs = [torch.as_tensor(a, device="cuda") for a in (er, ed, el)]
+label.label_components(*arrs)
+torch.cuda.synchronize()
+with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    label.label_components(*arrs)
+    torch.cuda.synchronize()
+print(json.dumps([e.name for e in prof.events()
+                  if e.device_type == DeviceType.CUDA]))
+"""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", code], cwd=root, check=True,
+                         capture_output=True, text=True, timeout=600)
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.cuda
+def test_label_kernel_one_launch(cuda_device):
+    """One K1 call is one kernel on the card: a cluster per scan, no
+    second launch."""
+    names = _launched_kernels((32, 16, 1800), 6)
+    assert len(names) == 1 and "label_union_find" in names[0], names
+
+
+@pytest.mark.cuda
+def test_label_launcher_refuses_oversized_pieces(cuda_device):
+    """K1's launcher refuses, without launching, a grid whose piece (one
+    row here) does not fit a block's shared memory; `route` never sends it
+    one."""
+    arrs = [torch.zeros((1, 1, 60000), dtype=torch.bool, device=cuda_device)
+            for _ in range(3)]
+    out = torch.full((1, 1, 60000), 7, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="refused"):
+        label._call("label_components", "label_components_launch", *arrs,
+                    out, 1, 1, 60000)
+    torch.cuda.synchronize()
+    assert int(out.min()) == 7
 
 
 @pytest.mark.cuda
@@ -70,18 +177,7 @@ def test_blocked_kernel_matches_plain(cuda_device, shape):
 def test_blocked_kernel_one_launch(cuda_device):
     """One K2 call is one kernel on the card: the pieces are joined in the
     cluster's shared memory, with no second launch and no parent table."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    arrs = [torch.as_tensor(a, device=cuda_device)
-            for a in _random_edges((4, 64, 1800), 7)]
-    label.label_components(*arrs)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        label.label_components(*arrs)
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events()
-             if e.device_type == DeviceType.CUDA]
+    names = _launched_kernels((4, 64, 1800), 7)
     assert len(names) == 1 and "label_cluster" in names[0], names
 
 

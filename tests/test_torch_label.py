@@ -80,6 +80,33 @@ def _zigzag():
     return er, ed, el
 
 
+def _piece_seams():
+    """Components that cross the row seams of the card kernel's pieces
+    (8 blocks of 2 rows a 16-row scan) many times: a snake of 5 vertical
+    runs through all 16 rows, joined alternately in the last and the first
+    row; a comb of 20 teeth joined only in the last row; runs that wrap from
+    column S-1 to 0 on rows 3 and 4, joined down across a seam."""
+    L, S = 16, 1800
+    el, er, ed = (np.zeros((L, S), bool) for _ in range(3))
+    for k in range(5):
+        c = 8 + 4 * k
+        el[:, c] = True
+        ed[:-1, c] = True
+        if k < 4:
+            row = L - 1 if k % 2 == 0 else 0
+            el[row, c:c + 5] = True
+            er[row, c:c + 4] = True
+    el[:, 100:160:3] = True
+    ed[:-1, 100:160:3] = True
+    el[L - 1, 100:158] = True
+    er[L - 1, 100:157] = True
+    for r in (3, 4):
+        el[r, :2] = el[r, -3:] = True
+        er[r, :1] = er[r, -3:] = True
+    ed[3, S - 2] = True
+    return er, ed, el
+
+
 # (case, n_alt of the reference Pallas kernel that reaches the fixpoint)
 CASES = {
     "wrap_seam": (_wrap_seam, 3),
@@ -89,6 +116,7 @@ CASES = {
     "random_16x1800": (lambda: _random_edges(16, 1800, 1), 8),
     "random_64x360": (lambda: _random_edges(64, 360, 2), 8),
     "random_dense_64x200": (lambda: _random_edges(64, 200, 3, 0.7, 0.55), 12),
+    "piece_seams_16x1800": (_piece_seams, 5),
 }
 
 
