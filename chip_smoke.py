@@ -74,6 +74,16 @@ Phases, in order; any failure exits non-zero:
                  attempts, at least one loop with fitness < 0.3, edges =
                  keyframes - 1 + loops, fused ATE <= the JAX package's on the
                  same sequence + 0.05 m, SLAM scans/s, syncs, peak
+     path R      the radius-selected map with loop closure off (run_slam.py
+                 --no-loop-closure): path V's config with
+                 loop_closure_enabled=False over the first 6 + 2x32 scans:
+                 the selection changed and the window was rebuilt at least
+                 twice (each step's selection recorded on the card), no
+                 loop attempt, K1, K3 and K4/K5 launches, no host sync in
+                 the warm chunk, fused ATE <= the odometry ATE of the same
+                 scans and <= 0.25 m
+     path H-radius  path H with lc_map_mode="radius": the same checks as
+                 path H against the JAX package's ATE over the radius map
   6. profiles    under torch.profiler, after every timing: one streamed
                  RUNNING scan and each of its stages; one mapping step and
                  each of its stages; one loop-closure attempt and one
@@ -87,7 +97,16 @@ Phases, in order; any failure exits non-zero:
                  the profiled loop attempt (flags and matched id equal,
                  fitness within 10%, edge within 1 cm and 0.01 rad), the
                  profiled solve and LinsMapper.final_solve (keyframe
-                 positions within 1 mm, rotations within 0.001 rad)
+                 positions within 1 mm, rotations within 0.001 rad); path
+                 R's first 8 scans as the window path's; final_solve on path
+                 H-radius's state on the card (keyframes moved and finite,
+                 the radius selection rebuilt)
+  8. runner      `python -m lins_tpu_torch.run_slam --synthetic gentle
+                 --scans 40 --no-loop-closure --checkpoint-every 20
+                 --map-format ply` into chiprun_out/runner, then the same
+                 resumed from its ckpt_00020.npz: both exit 0 and write
+                 every output, the summary has the JAX runner's keys,
+                 trajectory.tum one row a scan with a pose, ATE <= 0.25 m
 Then one JSON line of kernel numbers, the nvidia-smi line, and as the last
 line {"ok": true, "device": {...}}.  Without a card, or outside the
 repository, it exits non-zero and prints no result.
@@ -98,6 +117,8 @@ import collections
 import contextlib
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
 import time
@@ -120,6 +141,22 @@ SEQ_H = dict(kind="loop", speed=2.2, loop_scale=0.32, acc_noise=0.02,
              bw=(0.002, -0.001, 0.0015))
 REF_FUSED_ATE_H_M = 0.04789136468507596
 ATE_MARGIN_H_M = 0.05
+# path H-radius: path H over the radius-selected map (lc_map_mode="radius"),
+# and the JAX package's fused ATE on it, made the same way
+# (PYTHONPATH=. python tests/test_torch_loop.py HR)
+REF_FUSED_ATE_HR_M = 0.0468685702843051
+# the runner on the card: a radius run of the gentle sequence with a
+# checkpoint every RUNNER_CKPT scans, then a run resumed from the first
+RUNNER_SCANS = 40
+RUNNER_CKPT = 20
+RUNNER_TIMEOUT_S = 400
+RUNNER_OUTPUTS = {"trajectory.tum", "trajectory_kf.tum", "metrics.jsonl",
+                  "global_map.ply", "final_state.npz", "summary.json"}
+# the keys of the JAX package's runner's summary.json with mapping, a
+# ground truth and the state dump (run_slam.py:268-321)
+RUNNER_SUMMARY_KEYS = {"scans", "elapsed_s", "compile_s", "scans_per_sec",
+                       "keyframes", "loops", "loops_applied",
+                       "state_save_s", "ate_rmse_m", "rpe_m", "ate_kf_m"}
 CPU_CHECK_SCANS = 8
 CPU_CHECK_LIMIT_M = 0.01
 # mapping, card float32 vs CPU float64: the reference's own cross-backend
@@ -1641,11 +1678,89 @@ def phase_path_v(cfg, data):
     return dict(r, slam=slam, ate=err, ps=ps)
 
 
-def phase_path_h(cfg, data):
+@contextlib.contextmanager
+def record_selections():
+    """Record each radius selection the mapping steps make (the ids
+    tensor, left on the card: no host read)."""
+    from lins_tpu_torch.mapping import local_map as lmn
+
+    inner, seen = lmn.select_radius, []
+
+    def select_radius(*args):
+        out = inner(*args)
+        seen.append(out[0])
+        return out
+
+    lmn.select_radius = select_radius
+    try:
+        yield seen
+    finally:
+        lmn.select_radius = inner
+
+
+def check_reselected(slam, seen):
+    """The radius window changed, and was rebuilt, at least twice: the
+    selection is stored only by the rebuild, which runs (is selected) when
+    a step's ids differ from the stored ones."""
+    import torch
+
+    sel = [s.cpu() for s in seen]
+    empty = torch.full_like(sel[0], -1)
+    changes = sum(not bool((a == b).all())
+                  for a, b in zip([empty] + sel, sel))
+    final = slam.mapper.state.lmap.sel.cpu()
+    check(changes >= 2 and bool((final == sel[-1]).all()),
+          f"the radius selection changed and the window was rebuilt "
+          f"{changes} times in {len(sel)} mapping steps; "
+          f"{int((final >= 0).sum())} keyframes selected at the end")
+    return changes
+
+
+def phase_path_r(cfg, data, odo_ps):
     from lins_tpu_torch.slam import LinsSlam
     from lins_tpu_torch.utils.trajectory import ate
 
-    log("== 5. path H: HDL-64 full SLAM on the revisiting circuit")
+    log("== 5. path R: the radius-selected map, loop closure off "
+        "(run_slam.py --no-loop-closure)")
+    slam = LinsSlam(cfg, enable_mapping=True)
+    with record_selections() as seen:
+        r = replay(slam, data, N_SCANS_WINDOW)
+    log_run("SLAM over the radius map", slam, r)
+    counts = r["counts"]
+    _, ps, qs = slam.trajectory_arrays()
+    metrics = _mapping_log(slam)
+    n_gn = len(metrics) - 1
+    changes = check_reselected(slam, seen)
+    check(len(ps) == N_SCANS_WINDOW - 1,
+          "one fused pose per scan after the first")
+    check(not slam.mapper.loop_info, "no loop attempt with loop closure off")
+    check(counts["select"] >= 2 * n_gn and counts["select_plain"] == 0,
+          f"K3 launched {counts['select']} times >= 2 per mapping step "
+          f"against a map ({n_gn} steps), no plain selection")
+    check(counts["label"] > 0 and counts["label_plain"] == 0
+          and counts["label_blocked"] == 0,
+          f"K1 launched {counts['label']} times, no plain labelling")
+    check_assoc(counts, cfg, N_SCANS_WINDOW)
+    check(r["syncs"] == 0, "no host sync in the warm chunk")
+    check(bool(np.isfinite(ps).all() and np.isfinite(qs).all()),
+          "every fused pose finite")
+    gt = data["gt_pos"][1:1 + len(ps)]
+    err = ate(ps, gt, align=True)
+    odo_err = ate(odo_ps[:len(ps)], gt, align=True)
+    check(err <= odo_err and err <= ATE_LIMIT_M,
+          f"fused ATE {err:.4f} m <= odometry ATE {odo_err:.4f} m of the "
+          f"same scans and <= {ATE_LIMIT_M} m ({len(ps)} scans)")
+    return dict(r, slam=slam, ate=err, ps=ps, metrics=metrics,
+                changes=changes)
+
+
+def phase_path_h(cfg, data, what="path H", ref_ate=REF_FUSED_ATE_H_M):
+    from lins_tpu_torch.slam import LinsSlam
+    from lins_tpu_torch.utils.trajectory import ate
+
+    log(f"== 5. {what}: HDL-64 full SLAM on the revisiting circuit"
+        + (", the radius-selected map" if cfg.lc_map_mode == "radius"
+           else ""))
     slam = LinsSlam(cfg, enable_mapping=True)
     in_loops = _count_loop_launches(slam.mapper)
     r = replay(slam, data)
@@ -1681,9 +1796,9 @@ def phase_path_h(cfg, data):
     check(bool(np.isfinite(ps).all() and np.isfinite(qs).all()),
           "every fused pose finite")
     err = ate(ps, data["gt_pos"][1:1 + len(ps)], align=True)
-    lim = REF_FUSED_ATE_H_M + ATE_MARGIN_H_M
+    lim = ref_ate + ATE_MARGIN_H_M
     check(err <= lim,
-          f"fused ATE {err:.4f} m <= the JAX package's {REF_FUSED_ATE_H_M:.4f}"
+          f"fused ATE {err:.4f} m <= the JAX package's {ref_ate:.4f}"
           f" m + {ATE_MARGIN_H_M} m ({len(ps)} scans)")
     return dict(r, slam=slam, ate=err, ps=ps, metrics=metrics,
                 n_loops=n_loops, n_kf=n_kf, in_loops=in_loops)
@@ -1938,6 +2053,85 @@ def phase_cpu_map_check(what, cfg, data, card_ps, card_metrics):
     return diff, rel
 
 
+def phase_hr_final_solve(slam):
+    """LinsMapper.final_solve on path H-radius's final state, on the card:
+    the solve over every edge (the add-only loop edges included) and the
+    current radius selection rebuilt at the corrected poses."""
+    m = slam.mapper
+    before = m.state.store.pos.clone()
+    sel = m.state.lmap.sel.clone()
+    t0 = time.perf_counter()
+    m.final_solve()
+    pos = m.state.store.pos
+    live = (m.state.store.kf_id >= 0).cpu().numpy()
+    moved = float((pos - before).abs().max())
+    check(bool(np.isfinite(pos.cpu().numpy()[live]).all()) and moved > 0
+          and bool((m.state.lmap.sel == sel).all()),
+          f"final_solve over the radius map: keyframes moved up to "
+          f"{moved:.6f} m, finite, the selection of "
+          f"{int((sel >= 0).sum())} keyframes rebuilt "
+          f"({time.perf_counter() - t0:.2f} s)")
+
+
+def phase_runner():
+    """`python -m lins_tpu_torch.run_slam` on the card, as a user runs it:
+    a radius run with checkpoints, then a run resumed from the first
+    checkpoint.  Each exits 0 and writes every output; the summary has the
+    JAX package's runner's keys, trajectory.tum one row a scan with a pose,
+    the ATE within ATE_LIMIT_M."""
+    log("== 8. the runner: python -m lins_tpu_torch.run_slam")
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = os.path.join(root, "chiprun_out", "runner")
+    ckpt = os.path.join(out, f"ckpt_{RUNNER_CKPT:05d}.npz")
+    cmd = [sys.executable, "-m", "lins_tpu_torch.run_slam", "--synthetic",
+           "gentle", "--scans", str(RUNNER_SCANS), "--no-loop-closure",
+           "--checkpoint-every", str(RUNNER_CKPT), "--map-format", "ply"]
+    runs = (("a radius run", out, [], RUNNER_SCANS - 1,
+             {f"ckpt_{k:05d}.npz"
+              for k in range(RUNNER_CKPT, RUNNER_SCANS + 1, RUNNER_CKPT)}),
+            ("the run resumed at scan " + str(RUNNER_CKPT), out + "_resume",
+             ["--resume", ckpt], RUNNER_SCANS - RUNNER_CKPT,
+             {f"ckpt_{RUNNER_SCANS:05d}.npz"}))
+    summaries = []
+    for what, d, extra, rows, ckpts in runs:
+        shutil.rmtree(d, ignore_errors=True)
+        t0 = time.perf_counter()
+        p = subprocess.run(cmd + extra + ["--out", d], cwd=root,
+                           capture_output=True, text=True,
+                           timeout=RUNNER_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        if p.returncode:
+            log(p.stdout[-3000:] + p.stderr[-3000:])
+        check(p.returncode == 0, f"{what}: exit 0 ({wall:.1f} s)")
+        files = set(os.listdir(d))
+        check(RUNNER_OUTPUTS | ckpts == files,
+              f"{what}: wrote {sorted(files)}")
+        with open(os.path.join(d, "summary.json")) as f:
+            summary = json.load(f)
+        check(set(summary) == RUNNER_SUMMARY_KEYS
+              and json.loads(p.stdout.strip().splitlines()[-1]) == summary,
+              f"{what}: the summary has the JAX runner's keys, printed and "
+              f"written")
+        with open(os.path.join(d, "trajectory.tum")) as f:
+            n = sum(1 for _ in f)
+        check(n == rows == summary["scans"],
+              f"{what}: trajectory.tum has {n} rows, one a scan with a pose")
+        check(summary["ate_rmse_m"] <= ATE_LIMIT_M,
+              f"{what}: ATE {summary['ate_rmse_m']} m <= {ATE_LIMIT_M} m")
+        log(f"  {what}: {summary}")
+        summaries.append(summary)
+    # the checkpoints and state dumps (about 50 MB each at VLP-16 size)
+    # are checked; they are not kept
+    for d in (out, out + "_resume"):
+        for name in sorted(os.listdir(d)):
+            if name.endswith(".npz"):
+                path = os.path.join(d, name)
+                log(f"  {os.path.relpath(path, root)}: "
+                    f"{os.path.getsize(path) / 2**20:.1f} MiB (removed)")
+                os.unlink(path)
+    return summaries
+
+
 def _idle(p):
     return 1 - p["busy_ms"] / p["wall_ms"] if p["launches"] else math.nan
 
@@ -1960,6 +2154,8 @@ def main():
     cfg_v = cfg.replace(use_pallas_select=True)
     cfg_h = HDL64.replace(use_pallas=True, use_pallas_select=True,
                           loop_time_gate=4.0)
+    cfg_r = cfg_v.replace(loop_closure_enabled=False)
+    cfg_hr = cfg_h.replace(lc_map_mode="radius")
     t0 = time.perf_counter()
     data = generate_sequence(cfg, n_scans=N_SCANS, kind="gentle", speed=1.5)
     data_h = generate_sequence(cfg_h, n_scans=N_SCANS_H, **SEQ_H)
@@ -1976,7 +2172,9 @@ def main():
     k3["max_abs_err"] = max(k3["max_abs_err"], k3_err)
     pv = phase_path_v(cfg_v, data)
     ph = phase_path_h(cfg_h, data_h)
-    runs = dict(odometry=odo, window=mp, V=pv, H=ph)
+    pr = phase_path_r(cfg_r, data, odo["ps"])
+    phr = phase_path_h(cfg_hr, data_h, "path H-radius", REF_FUSED_ATE_HR_M)
+    runs = dict(odometry=odo, window=mp, V=pv, H=ph, R=pr, HR=phr)
     # each kernel's launches: the sum of its counts over the main-path runs,
     # each read just after its own run
     k1["launches"] = sum(r["counts"]["label"] for r in runs.values())
@@ -2015,6 +2213,10 @@ def main():
     hdiff, hrel = phase_cpu_map_check("path H (HDL-64)", cfg_h, data_h,
                                       ph["ps"], ph["metrics"])
     sdiff = phase_loop_cpu_check(ph["slam"], attempt_out, solved)
+    rdiff, rrel = phase_cpu_map_check("path R (radius map)", cfg_r, data,
+                                      pr["ps"], pr["metrics"])
+    phase_hr_final_solve(phr["slam"])
+    runner = phase_runner()
     log(f"  summary on {smi}:")
     for name, r in runs.items():
         log(f"    {name}: {r['rate']:.3f} scans/s, ATE {r['ate']:.4f} m, "
@@ -2022,7 +2224,12 @@ def main():
             f"{r['peak_bytes'] / 2**20:.1f} MiB")
     log(f"    card-vs-CPU: odometry {diff:.6f} m; window {mdiff:.6f} m, "
         f"matches {mrel:.4f}; H {hdiff:.6f} m, matches {hrel:.4f}; H's "
-        f"final solve {sdiff:.2e} m")
+        f"final solve {sdiff:.2e} m; R {rdiff:.6f} m, matches {rrel:.4f}")
+    log(f"    R: the selection changed {pr['changes']} times; H-radius: "
+        f"{phr['n_loops']} loops, {phr['n_kf']} keyframes")
+    log("    runner: " + "; ".join(
+        f"{s['scans']} scans at {s['scans_per_sec']} scans/s, warm-up "
+        f"{s['compile_s']} s, ATE {s['ate_rmse_m']} m" for s in runner))
     log(f"    H: {ph['n_loops']} loops, {ph['n_kf']} keyframes; one loop "
         f"attempt {attempt['launches']} launches, busy "
         f"{attempt['busy_ms']:.3f} ms, idle share {_idle(attempt):.4f}; one "

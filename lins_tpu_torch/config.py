@@ -7,9 +7,7 @@ rest); on the card the connected-components labelling always runs as the
 CUDA kernel in `lins_tpu_torch/ops/label.py`.  Likewise the scan-to-map
 candidate selection always runs as the CUDA kernel in
 `lins_tpu_torch/ops/select.py`; `use_pallas_select` only picks its prune
-bound (ops/grid_nn.gather_candidates).  The mapper refuses the
-radius-selected map (`loop_closure_enabled=False` or
-`lc_map_mode="radius"`), which is the port's slice 4.
+bound (ops/grid_nn.gather_candidates).
 """
 from __future__ import annotations
 

@@ -305,7 +305,7 @@ def extract_features(seg: SegmentedScan, outlier_xyz, outlier_mask,
     if cfg.feature_mode != "fast":
         raise NotImplementedError(
             f"feature_mode={cfg.feature_mode!r}: the port has the 'fast' "
-            f"mode only; 'exact' is the port's slice 4")
+            f"mode only; 'exact' is the port's next slice")
     label, less_flat_mask = extract_features_fast(seg, cfg)
     lf_mask = voxel_mask_hash(seg.xyz, less_flat_mask, cfg.surf_leaf_size)
     return _compact_scatter_packed(seg, label, lf_mask, outlier_xyz,

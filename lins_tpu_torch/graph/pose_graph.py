@@ -14,7 +14,7 @@ the reference package.  Per iteration:
     as JAX's Cholesky returns NaN) and a boxplus update.
 A failed step is a no-op iteration.  Edges and nodes live in fixed-capacity
 masked arrays.  The matrix-free sparse solve (`optimize_cg`, which the
-reference takes above 1024 keyframes) is the port's slice 4.
+reference takes above 1024 keyframes) is the port's parallel slice.
 """
 from __future__ import annotations
 
@@ -25,7 +25,8 @@ import torch
 from lins_tpu_torch.geom import so3
 from lins_tpu_torch.mapping.keyframes import put_row
 
-SLICE4 = "the port's slice 4 (radius map, sparse solve, sharded store)"
+PARALLEL_SLICE = ("the port's parallel slice (the sparse solve and the "
+                  "sharded store)")
 
 
 class EdgeSet(NamedTuple):
@@ -224,7 +225,7 @@ def optimize_cg(pos, quat, active, edges: EdgeSet, iters: int = 8,
     """The reference's matrix-free block-Jacobi PCG solve, which its mapper
     takes above 1024 keyframes."""
     raise NotImplementedError(f"pose_graph.optimize_cg: the sparse solve is "
-                              f"{SLICE4}")
+                              f"{PARALLEL_SLICE}")
 
 
 def graph_cost(pos, quat, edges: EdgeSet):

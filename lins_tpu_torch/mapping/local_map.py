@@ -1,4 +1,4 @@
-"""Incremental local-map maintenance (port of the recent-window part of
+"""Incremental local-map maintenance (port of
 `lins_tpu/mapping/local_map.py`; reference C19, extractSurroundingKeyFrames,
 lidar_mapping_node.cpp:1201-1324).
 
@@ -7,9 +7,13 @@ every mapping step.  Here the map is incremental (ops/voxel_map.py): a
 keyframe insert voxelizes only its own world-frame points and adds them,
 the ring slot it evicts is subtracted from its stored `VoxDelta`, and a
 full compaction rebuild runs every `map_rebuild_interval` keyframes or on
-cell overflow.  The window is the last W keyframes (the reference's
-loop-closure-mode map, :1205-1235), ring row = keyframe id mod W.  The
-radius-selected window (`select_radius`) is the port's slice 4.
+cell overflow.  Two window modes, as in the reference:
+  * recent window (loop-closure mode, :1205-1235): the last W keyframes,
+    ring row = keyframe id mod W;
+  * radius (loop closure off, or `lc_map_mode="radius"`, :1248-1324): the
+    W nearest live keyframes within surrounding_keyframe_search_radius of
+    the current pose (`select_radius`), rebuilt whenever the selected id
+    set changes.
 """
 from __future__ import annotations
 
@@ -215,3 +219,28 @@ def recent_window_ids(store: kf.KeyframeStore, n_window: int):
     oldest = torch.clamp(store.count - store.capacity, min=0)
     ok = (ids >= 0) & (ids >= oldest) & (ids < store.count)
     return ids, ok, torch.remainder(ids, n_window).to(torch.int32)
+
+
+def select_radius(store: kf.KeyframeStore, cur_pos, radius: float,
+                  n_window: int):
+    """The (up to) n_window nearest live keyframes within `radius` of the
+    current position (radius mode, lidar_mapping_node.cpp:1248-1260),
+    sorted by id so that two selections compare elementwise.
+
+    Equal distances keep the lower slot, as `lax.top_k` does in the
+    reference (every dead slot is at infinity, and keyframes can be
+    equidistant): a stable sort on the distance, whose order among equal
+    keys is the slot order.  Returns (ids (W,) with -1 for empty, ok (W,)).
+    """
+    diff = store.pos - cur_pos[None, :]
+    d = torch.sqrt(torch.sum(diff * diff, dim=1))
+    d = torch.where(kf.live_mask(store), d, torch.full_like(d, math.inf))
+    d_sorted, slots = torch.sort(d, stable=True)
+    d_sorted, slots = d_sorted[:n_window], slots[:n_window]
+    ok = d_sorted < radius
+    ids = torch.where(ok, store.kf_id[slots], -1)
+    pad = n_window - ids.shape[0]
+    if pad > 0:
+        ids = torch.cat([ids, ids.new_full((pad,), -1)])
+    ids = torch.sort(ids).values
+    return ids, ids >= 0

@@ -31,10 +31,13 @@ whole-solve guard) are computed and selected as well; which scans attempt
 a loop is host cadence.  `final_solve` re-solves over every edge at the
 end of a run.
 
-The recent-window map is ported (`loop_closure_enabled=True`,
-`lc_map_mode="recent"`).  The radius-selected map, the sparse solve that
-the reference takes above 1024 keyframes and the sharded store are the
-port's slice 4 and raise NotImplementedError.
+Both local maps are ported: the recent window (`loop_closure_enabled`,
+`lc_map_mode="recent"`) and the radius-selected map (loop closure off, the
+reference's loopClosureEnableFlag=false mode, or `lc_map_mode="radius"`),
+which each mapping step re-selects around the warm-start pose and rebuilds
+when the selected set changes (computed and selected on the card as well).
+The sparse solve that the reference takes above 1024 keyframes and the
+sharded store are the parallel slice's and raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -156,14 +159,20 @@ def downsample_scan(corner_xyz, corner_valid, surf_xyz, surf_valid,
                       torch.any(c_ok[qc_cap:]) | torch.any(st_ok[qs_cap:]))
 
 
+def _radius_map(cfg: SlamConfig) -> bool:
+    """Whether the local map is radius-selected: always with loop closure
+    off, and in loop-closure mode with lc_map_mode "radius"."""
+    return not cfg.loop_closure_enabled or cfg.lc_map_mode == "radius"
+
+
 def _mapping_step_impl(state: MapperState, odo_pos, odo_quat, time,
                        corner_xyz, corner_valid, surf_xyz, surf_valid,
                        outl_xyz, outl_valid, imu_rp, cfg: SlamConfig,
                        corner_cap: int, surf_cap: int, outlier_cap: int,
                        n_window: int, gp: lmn.GridParams, has_map: bool):
-    """One mapping step of the recent-window map.  `has_map` (host bool):
-    whether any keyframe was stored before, false only on the first step
-    ever.  Returns (new state, refined pos, quat, metrics)."""
+    """One mapping step.  `has_map` (host bool): whether any keyframe was
+    stored before, false only on the first step ever.  Returns (new state,
+    refined pos, quat, metrics)."""
     dtype, dev = state.bef_pos.dtype, state.bef_pos.device
     odo_pos = odo_pos.to(dtype)
     odo_quat = odo_quat.to(dtype)
@@ -174,6 +183,16 @@ def _mapping_step_impl(state: MapperState, odo_pos, odo_quat, time,
     c_ds, c_ok, s_ds, s_ok, o_ds, o_ok = sc[:6]
 
     lmap, store = state.lmap, state.store
+    radius_map = _radius_map(cfg)
+    if radius_map and has_map:
+        # the radius window, rebuilt only when the selected keyframe set
+        # changes (extractSurroundingKeyFrames else-branch, :1248-1324)
+        ids, okm = lmn.select_radius(
+            store, t_w, cfg.surrounding_keyframe_search_radius, n_window)
+        changed = torch.any(ids != lmap.sel) & (store.count > 0)
+        wslots = torch.arange(n_window, dtype=torch.int32, device=dev)
+        lmap = cond(changed, lambda: lmn.rebuild_window(
+            state.lmap, store, ids, okm, wslots, gp), lmap)
     zero = torch.zeros((), dtype=torch.int32, device=dev)
     if has_map:
         t_m, q_m, iters, n_sel, n_refresh = scan_to_map_grids(
@@ -201,16 +220,20 @@ def _mapping_step_impl(state: MapperState, odo_pos, odo_quat, time,
         new_id = store.count
         store2 = kf.add_keyframe(store, t_m, q_m, time, c_ds, c_ok,
                                  s_ds, s_ok, o_ds, o_ok)
-        # recent-window incremental insert (evict-subtract + add)
-        lm = lmn.push_keyframe(lmap, new_id, t_m, q_m, c_ds, c_ok, s_ds,
-                               s_ok, o_ds, o_ok, gp)
-        # periodic compaction: tombstone leak, cell overflow and float sum
-        # drift are bounded by a full rebuild every map_rebuild_interval
-        # keyframes (computed and selected on the card)
-        need = (lm.pushes >= cfg.map_rebuild_interval) | lm.rebuild_due
-        ids, okm, wslots = lmn.recent_window_ids(store2, n_window)
-        lm = cond(need, lambda: lmn.rebuild_window(lm, store2, ids, okm,
-                                                   wslots, gp), lm)
+        lm = lmap
+        if not radius_map:
+            # recent-window incremental insert (evict-subtract + add); in
+            # radius mode the next step's selection takes the new keyframe
+            lm = lmn.push_keyframe(lm, new_id, t_m, q_m, c_ds, c_ok, s_ds,
+                                   s_ok, o_ds, o_ok, gp)
+            # periodic compaction: tombstone leak, cell overflow and float
+            # sum drift are bounded by a full rebuild every
+            # map_rebuild_interval keyframes (computed and selected on the
+            # card)
+            need = (lm.pushes >= cfg.map_rebuild_interval) | lm.rebuild_due
+            ids, okm, wslots = lmn.recent_window_ids(store2, n_window)
+            lm = cond(need, lambda: lmn.rebuild_window(lm, store2, ids, okm,
+                                                       wslots, gp), lm)
         edges = state.edges
         if has_map:
             # odometry between-factor prev_kf -> new_kf with absolute ids
@@ -258,7 +281,14 @@ def _solve_and_rewrite(state: MapperState, edges: pg.EdgeSet,
     pos, quat = solve(store.pos, store.quat, live, ev, opt_iters,
                       prior_slot=prior_slot, huber_delta=cfg.pg_loop_huber)
     store2 = kf.set_poses(store, pos, quat)
-    ids, ok, wslots = lmn.recent_window_ids(store2, n_window)
+    if cfg.lc_map_mode == "radius":
+        # the current radius selection at the corrected poses (the next
+        # mapping step re-selects around the corrected pose)
+        ids = state.lmap.sel
+        ok, wslots = ids >= 0, torch.arange(n_window, dtype=torch.int32,
+                                            device=ids.device)
+    else:
+        ids, ok, wslots = lmn.recent_window_ids(store2, n_window)
     lmap = lmn.rebuild_window(state.lmap, store2, ids, ok, wslots, gp)
     cur_slot = torch.remainder(torch.clamp(store.count - 1, min=0), K)
     new = state._replace(store=store2, lmap=lmap, edges=edges,
@@ -325,7 +355,9 @@ def mapper_state_from_numpy(d, device=None, dtype=torch.float32):
     `jax.tree_util.tree_map(np.asarray, state)`), or the same fields as
     nested dicts: store, lmap (sel, dc, dsf, corner_vm, surf_vm, pushes),
     bef/aft pose, edges, n_loops.  Floating fields become `dtype`, integer
-    fields int32, masks bool; the voxel maps keep their static sizes.
+    fields int32, masks bool; the voxel maps keep their static sizes.  A
+    state without its local map (lmap None, as checkpoints hold it) gives
+    lmap None.
     """
     def get(o, k):
         return o[k] if isinstance(o, dict) else getattr(o, k)
@@ -353,7 +385,7 @@ def mapper_state_from_numpy(d, device=None, dtype=torch.float32):
     lm = get(d, "lmap")
     return MapperState(
         store=fields(kf.KeyframeStore, get(d, "store")),
-        lmap=lmn.LocalMapState(
+        lmap=None if lm is None else lmn.LocalMapState(
             sel=tensor(get(lm, "sel")), dc=fields(VoxDelta, get(lm, "dc")),
             dsf=fields(VoxDelta, get(lm, "dsf")),
             corner_vm=vmap_(get(lm, "corner_vm")),
@@ -385,16 +417,12 @@ class LinsMapper:
                  outlier_cap=None, n_window=None, map_corner_cap=None,
                  map_surf_cap=None, submap_cap=None, cloud_cap=None,
                  dtype=None, device=None):
-        if not cfg.loop_closure_enabled or cfg.lc_map_mode == "radius":
-            raise NotImplementedError(
-                "LinsMapper: the radius-selected local map "
-                "(loop_closure_enabled=False or lc_map_mode='radius') is "
-                f"{pg.SLICE4}; use the recent-window map")
-        if cfg.loop_attempts and cfg.max_keyframes > 1024:
+        if (cfg.loop_closure_enabled and cfg.loop_attempts
+                and cfg.max_keyframes > 1024):
             raise NotImplementedError(
                 f"LinsMapper: loop closure at max_keyframes="
                 f"{cfg.max_keyframes} needs the sparse pose-graph solve, "
-                f"{pg.SLICE4}")
+                f"{pg.PARALLEL_SLICE}")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = resolve_dtype(dtype)
@@ -421,12 +449,13 @@ class LinsMapper:
 
     def shard_store_over(self, mesh, axis: str = "seq"):
         raise NotImplementedError(
-            f"LinsMapper.shard_store_over: the sharded store is {pg.SLICE4}")
+            "LinsMapper.shard_store_over: the sharded store is "
+            f"{pg.PARALLEL_SLICE}")
 
     def warmup(self, cloud_dtype=None, chunk: int | None = None):
         """Kept for API parity with the reference package, whose warmup
-        compiles its programs ahead of time; the selection kernel is built
-        at its first launch (ops/build.py)."""
+        compiles its programs ahead of time; `LinsOdometry.warmup` builds
+        every kernel of the port, the selection kernel included."""
 
     def _step(self, odo_pos, odo_quat, time, corner_xyz, corner_valid,
               surf_xyz, surf_valid, outl_xyz, outl_valid, imu_rp):
@@ -544,20 +573,28 @@ class LinsMapper:
     def final_solve(self):
         """Pose-graph solve and rewrite over all accumulated edges
         (_final_solve_impl); call once at the end of a run, before reading
-        the keyframe trajectory or the map."""
+        the keyframe trajectory or the map.  Does nothing with loop closure
+        off, where the graph is never solved."""
+        if not self.cfg.loop_closure_enabled:
+            return
         self.state = _final_solve_impl(self.state, self.cfg, 8,
                                        self.n_window, self.gp)
 
     def rebuild_local_map(self):
         """Rebuild the derived local-map caches (voxel maps + eviction
-        deltas) from the keyframe store, e.g. after an external store
-        edit."""
+        deltas) from the keyframe store: after `load_state` (checkpoints do
+        not hold them) or an external store edit.  A radius-selected map
+        defers to the next mapping step's selection: the fresh selection of
+        -1s differs from any non-empty one, which forces the rebuild
+        there."""
         fresh = lmn.empty_local_map(self.cfg, self.n_window, *self.caps,
                                     self.dtype, self.gp, self.device)
-        ids, ok, wslots = lmn.recent_window_ids(self.state.store,
-                                                self.n_window)
-        self.state = self.state._replace(lmap=lmn.rebuild_window(
-            fresh, self.state.store, ids, ok, wslots, self.gp))
+        if not _radius_map(self.cfg):
+            ids, ok, wslots = lmn.recent_window_ids(self.state.store,
+                                                    self.n_window)
+            fresh = lmn.rebuild_window(fresh, self.state.store, ids, ok,
+                                       wslots, self.gp)
+        self.state = self.state._replace(lmap=fresh)
 
     def correction(self):
         """Latest (bef, aft) odometry->map correction for pose fusion."""
@@ -566,9 +603,13 @@ class LinsMapper:
 
     def load_numpy_state(self, d, last_time: float | None = None):
         """Take over a mapper state given with numpy leaves
-        (`mapper_state_from_numpy`), e.g. the reference package's; the
-        cadence restarts at `last_time` when given."""
+        (`mapper_state_from_numpy`), e.g. the reference package's or a
+        checkpoint's; the cadence restarts at `last_time` when given.  A
+        state without its local map gets it rebuilt from the store
+        (`rebuild_local_map`)."""
         self.state = mapper_state_from_numpy(d, self.device, self.dtype)
+        if self.state.lmap is None:
+            self.rebuild_local_map()
         self._has_map = int(self.state.store.count) > 0
         if last_time is not None:
             self.last_time = last_time

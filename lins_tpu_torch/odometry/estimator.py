@@ -60,6 +60,14 @@ def identity_nominal(cfg: SlamConfig, dtype=torch.float64,
                         ba=z, bw=z, gn=_gravity_vec(cfg, dtype, device))
 
 
+def dummy_feature_ref(cap: int, dtype=torch.float32, device=None) -> dict:
+    """An empty association reference set of `cap` points (the template a
+    checkpoint's reference sets load into)."""
+    return dict(xyz=torch.zeros((cap, 3), dtype=dtype, device=device),
+                ring=torch.zeros(cap, dtype=torch.int32, device=device),
+                valid=torch.zeros(cap, dtype=torch.bool, device=device))
+
+
 def _feature_ref(fc, dtype):
     """Reference-set dict for association."""
     return dict(xyz=fc.xyz.to(dtype), ring=fc.ring, valid=fc.valid)
@@ -587,9 +595,19 @@ class LinsOdometry:
         return self.global_state.rn, self.global_state.qbn
 
     def warmup(self, chunk: int | None = None):
-        """Kept for API parity with the reference package, whose warmup
-        compiles its programs ahead of time; PyTorch runs eagerly and the
-        label kernel is built at its first launch (ops/build.py)."""
+        """On the card, build and load every kernel library of the port
+        (ops/build.py: the nvcc processes started together; a library
+        newer than its source is reused), so that no build lands inside a
+        run; the reference package's warmup compiles its programs ahead of
+        time in the same place.  Nothing to do on the CPU."""
+        if self.device.type != "cuda":
+            return
+        from lins_tpu_torch.ops import build
+
+        build.build_all()
+        for name in build.KERNELS:
+            build.load(name)
+        torch.cuda.synchronize(self.device)
 
     def prefetch_chunks(self, scan_times, xyzs, n_points, chunk: int,
                         with_imu: bool = False):

@@ -43,7 +43,8 @@ class LinsSlam:
         self.trajectory = []   # fused (t, pos, quat), tensors or lazy rows
 
     def warmup(self, chunk=None):
-        """Kept for API parity (LinsOdometry.warmup, LinsMapper.warmup)."""
+        """Build the kernels ahead of the run on the card
+        (LinsOdometry.warmup, LinsMapper.warmup)."""
         self.odometry.warmup(chunk=chunk)
         if self.mapper is not None:
             self.mapper.warmup(chunk=chunk)

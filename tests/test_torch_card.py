@@ -636,3 +636,58 @@ def test_odometry_association_runs_through_k4_k5(cuda_device):
     assert assoc.corner_normal_equations.launches - before[1] >= need
     assert assoc.surf_normal_equations_plain.calls == before[2]
     assert assoc.corner_normal_equations_plain.calls == before[3]
+
+
+@pytest.mark.cuda
+def test_select_radius_on_card_ties(cuda_device):
+    """The radius selection on the card keeps the CPU's ids exactly where
+    distances tie (integer offsets: every distance exact) and across dead
+    slots, for windows that cut through the ties."""
+    from lins_tpu_torch.mapping import keyframes as kf
+    from lins_tpu_torch.mapping import local_map as lmn
+
+    rng = np.random.default_rng(0)
+    cfg = TINY.replace(max_keyframes=512)
+    store = kf.empty_store(cfg, 4, 8, 8)
+    pos = rng.integers(-4, 5, size=(512, 3)).astype(np.float32)
+    kf_id = (rng.permutation(512) + 600).astype(np.int32)
+    kf_id[rng.random(512) < 0.25] = -1
+    store = store._replace(pos=torch.as_tensor(pos),
+                           kf_id=torch.as_tensor(kf_id),
+                           count=torch.tensor(1112, dtype=torch.int32))
+    card = store._replace(pos=store.pos.to(cuda_device),
+                          kf_id=store.kf_id.to(cuda_device))
+    cur = torch.tensor([0.0, 1.0, -1.0])
+    for W in (1, 7, 50, 200):
+        want = lmn.select_radius(store, cur, 4.0, W)
+        got = lmn.select_radius(card, cur.to(cuda_device), 4.0, W)
+        assert torch.equal(got[0].cpu(), want[0]), W
+        assert torch.equal(got[1].cpu(), want[1]), W
+
+
+@pytest.mark.cuda
+def test_radius_mapping_on_card_matches_cpu(cuda_device):
+    """The radius-selected map (loop closure off) on the card within 5 cm
+    of float64 on the CPU over 14 scans, every selection through K3, and
+    the same keyframes selected at the end."""
+    from lins_tpu_torch.datasets.synthetic import generate_sequence
+    from lins_tpu_torch.slam import LinsSlam
+
+    cfg = TINY.replace(use_pallas=True, use_pallas_select=True,
+                       loop_closure_enabled=False)
+    kw = dict(corner_cap=256, surf_cap=1024, map_corner_cap=4096,
+              map_surf_cap=8192)
+    data = generate_sequence(cfg, n_scans=14, kind="gentle", speed=1.5,
+                             device=cuda_device)
+    before = select.select_candidates.launches
+    card = LinsSlam(cfg, **kw).run_replay(data, chunk=6)
+    assert select.select_candidates.launches > before
+    cpu = LinsSlam(cfg, device="cpu", dtype=torch.float64, **kw).run_replay(
+        data, chunk=6)
+    _, pg, _ = card.trajectory_arrays()
+    _, pc, _ = cpu.trajectory_arrays()
+    assert np.isfinite(pg).all()
+    np.testing.assert_allclose(pg, pc, rtol=0, atol=0.05)
+    sel = cpu.mapper.state.lmap.sel
+    assert (sel >= 0).sum() >= 2
+    assert torch.equal(card.mapper.state.lmap.sel.cpu(), sel)

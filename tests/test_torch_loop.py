@@ -250,9 +250,12 @@ if __name__ == "__main__":
     # The reference package's own numbers on chip_smoke.py's loop-closure
     # paths, on the CPU in float32 with its kernels off, as bench.py
     # configures it without a TPU:
-    #     PYTHONPATH=. python tests/test_torch_loop.py [H|V ...]
+    #     PYTHONPATH=. python tests/test_torch_loop.py [H|V|HR|R ...]
     # H: HDL-64, the revisiting circuit (107 scans, loop_time_gate 4 s);
-    # V: bench.py's main cell with loop attempts, the gentle sequence.
+    # V: bench.py's main cell with loop attempts, the gentle sequence;
+    # HR: H over the radius-selected map (lc_map_mode="radius");
+    # R: the radius map with loop closure off (run_slam.py
+    # --no-loop-closure), VLP-16, the first 6 + 2x32 gentle scans.
     import json
     import sys
     import time
@@ -273,7 +276,12 @@ if __name__ == "__main__":
             bw=(0.002, -0.001, 0.0015))),
         V=(VLP16.replace(max_points=28800), dict(
             n_scans=134, kind="gentle", speed=1.5)))
-    for name in sys.argv[1:] or ["H", "V"]:
+    paths["HR"] = (paths["H"][0].replace(lc_map_mode="radius"),
+                   paths["H"][1])
+    paths["R"] = (VLP16.replace(max_points=28800,
+                                loop_closure_enabled=False),
+                  dict(n_scans=70, kind="gentle", speed=1.5))
+    for name in sys.argv[1:] or ["H", "V", "HR", "R"]:
         cfg, seq_kw = paths[name]
         t0 = time.perf_counter()
         seq = jsyn.generate_sequence(cfg, **seq_kw)

@@ -13,8 +13,9 @@ against lins_tpu on the same numpy inputs:
   * one mapping step, and the window map's compaction rebuild, started
     from the reference's state (`mapper_state_from_numpy`); one step with
     the rebuild due, in the card's form equal to the branches taken;
-  * the loop-closure entry points run and the sharded store raises (the
-    configurations that wait for slice 4: tests/test_torch_slice.py).
+  * the loop-closure entry points run and the sharded store raises (it
+    waits for the parallel slice; the radius-selected map is
+    tests/test_torch_radius.py's).
 
 The reference's LinsSlam keeps its mapper at float32, so its float64 mapper
 is set in by hand.  Its selection runs the sort path (`use_pallas_select`
@@ -330,14 +331,14 @@ def test_scan_to_map_one_shot(data):
 def test_slice_3_entry_points_raise():
     """The loop-closure entry points of slice 3 run (TCFG has loop attempts
     off, so the attempt is skipped; on an empty store the final solve keeps
-    the state); the sharded store still waits for slice 4."""
+    the state); the sharded store still waits for the parallel slice."""
     m = tmapper.LinsMapper(TCFG, device="cpu", **MAP_KW)
     assert m.maybe_close_loop(1.0) is None
     count = int(m.state.store.count)
     m.final_solve()
     assert int(m.state.store.count) == count
     assert torch.isfinite(m.state.aft_pos).all()
-    with pytest.raises(NotImplementedError, match="slice 4"):
+    with pytest.raises(NotImplementedError, match="parallel slice"):
         m.shard_store_over(None)
 
 

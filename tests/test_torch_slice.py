@@ -13,6 +13,7 @@ from lins_tpu.datasets import synthetic as jsyn
 from lins_tpu.mapping.mapper import imu_roll_pitch as j_imu_roll_pitch
 from lins_tpu.odometry import LinsOdometry as JOdometry
 from lins_tpu_torch.config import SlamConfig
+from lins_tpu_torch.mapping import mapper
 from lins_tpu_torch.odometry import LinsOdometry as TOdometry
 from lins_tpu_torch.slam import LinsSlam, imu_roll_pitch
 
@@ -100,13 +101,12 @@ def test_final_filter_state(runs):
 def test_slam_loop_closure_waits_for_slice_3(change, match):
     """VLP16's defaults fire loop-closure attempts, which the port runs
     since slice 3; without loop closure (or with lc_map_mode="radius") the
-    map is radius-selected, which waits for slice 4."""
-    if not change:
-        slam = LinsSlam(TCFG, device="cpu")
-        assert TCFG.loop_attempts and slam.mapper._loops(), match
-        return
-    with pytest.raises(NotImplementedError, match=f"{match}.*slice 4"):
-        LinsSlam(TCFG.replace(**change), device="cpu")
+    map is radius-selected, which the port runs too (no loop attempts with
+    loop closure off)."""
+    cfg = TCFG.replace(**change)
+    slam = LinsSlam(cfg, device="cpu")
+    assert slam.mapper._loops() == cfg.loop_closure_enabled, match
+    assert mapper._radius_map(cfg) == (match == "radius")
 
 
 def test_imu_roll_pitch_matches_reference():
