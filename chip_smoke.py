@@ -43,7 +43,7 @@ Phases, in order; any failure exits non-zero:
                  RUNNING VLP-16 scan and one HDL-64 scan
   4. odometry    LinsSlam(VLP16, max_points=28800, use_pallas=True,
                  enable_mapping=False).run_replay over a synthetic gentle
-                 sequence (6 + 4x32 scans at 1.5 m/s): label launches (and
+                 sequence (6 + 2x32 scans at 1.5 m/s): label launches (and
                  K1's by scans a launch, for its lost time),
                  K4 and K5 launches (>= 2 x num_iter per RUNNING scan: the
                  IESKF trips and the GN fallback's), finite poses, odometry
@@ -55,7 +55,7 @@ Phases, in order; any failure exits non-zero:
                  memory
   5. mapping     window, no loop attempts: the same with the mapping
                  backend (use_pallas_select=True, loop_attempts=False) over
-                 the first 6 + 2x32 scans: K3 launches (>= 2 per mapping
+                 the same scans: K3 launches (>= 2 per mapping
                  step), no plain selection, fused ATE <= the odometry ATE of
                  the same scans and <= 0.25 m, SLAM scans/s, syncs, peak;
                  then K3 against its plain version on real gathers of the
@@ -63,7 +63,7 @@ Phases, in order; any failure exits non-zero:
                  plain and library times, both bounds and the previous
                  route's parts; the pair faster than the previous kernel
      path V      bench.py's main cell: the same with loop attempts on, over
-                 all 134 scans (no revisit, so no loop is found, but every
+                 the same 70 scans (no revisit, so no loop is found, but every
                  attempt's alignment is computed and selected on the card):
                  fused ATE <= 0.25 m, SLAM scans/s, syncs, peak, K3 launches
                  inside the attempts
@@ -76,7 +76,7 @@ Phases, in order; any failure exits non-zero:
                  same sequence + 0.05 m, SLAM scans/s, syncs, peak
      path R      the radius-selected map with loop closure off (run_slam.py
                  --no-loop-closure): path V's config with
-                 loop_closure_enabled=False over the first 6 + 2x32 scans:
+                 loop_closure_enabled=False over the same scans:
                  the selection changed and the window was rebuilt at least
                  twice (each step's selection recorded on the card), no
                  loop attempt, K1, K3 and K4/K5 launches, no host sync in
@@ -84,12 +84,31 @@ Phases, in order; any failure exits non-zero:
                  scans and <= 0.25 m
      path H-radius  path H with lc_map_mode="radius": the same checks as
                  path H against the JAX package's ATE over the radius map
+     path E      the window path in the "exact" feature mode (the
+                 reference's greedy picking): the odometry ATE of the same
+                 run <= 0.25 m, fused ATE <= it and <= the JAX package's
+                 exact-mode fused ATE + 0.05 m, no host sync in the warm
+                 chunk, scans/s beside the window path's
+     path H-sparse  path H with max_keyframes=2048: every loop attempt's
+                 solve (computed and selected on the card) is the sparse
+                 optimize_cg and no dense optimize runs; path H's gates
+                 against the JAX package's ATE at 2048 slots; the store's
+                 bytes
+     multi-stream  parallel/replay.make_sharded_slam_replay on a one-card
+                 mesh: 4 distinct VLP-16 streams (the gentle trajectory at
+                 four speeds) in path V's config, 6 streamed + 32 scans
+                 each, each stream's fused poses within 1e-4 m of its own
+                 LinsSlam chunk in this process, no host sync, batched
+                 scans/s beside one stream at a time, peak memory
   6. profiles    under torch.profiler, after every timing: one streamed
                  RUNNING scan and each of its stages; one mapping step and
                  each of its stages; one loop-closure attempt and one
                  pose-graph solve on path H's final state (device launches,
-                 busy time, idle share, top kernels); then K3 against its
-                 plain version on the loop polish's real gathers there
+                 busy time, idle share, top kernels); one RUNNING scan in
+                 the exact mode; one sparse solve on path H-sparse's final
+                 state, then against a CPU float64 copy (1 mm, 0.001 rad);
+                 then K3 against its plain version on the loop polish's
+                 real gathers there
   7. CPU checks  the first 8 scans again on the CPU in float64: odometry
                  positions within 1 cm; with mapping (the window path and
                  path H), positions within 5 cm and per-step matches within
@@ -100,13 +119,24 @@ Phases, in order; any failure exits non-zero:
                  positions within 1 mm, rotations within 0.001 rad); path
                  R's first 8 scans as the window path's; final_solve on path
                  H-radius's state on the card (keyframes moved and finite,
-                 the radius selection rebuilt)
+                 the radius selection rebuilt); path E's first 8 scans as
+                 the window path's; the exact mode's greedy picks of the
+                 first 6 scans' segmented scans equal the CPU float32
+                 picks of the same scans (the whole front end's differing
+                 picks from the raw points counted); the edge-sharded dense
+                 and sparse solves in an NCCL world of one (TCP on
+                 127.0.0.1) within 1e-5 m of the one-device solves on path
+                 H's final graph; parallel.dryrun.entry() and
+                 dryrun_multichip(the card count)
   8. runner      `python -m lins_tpu_torch.run_slam --synthetic gentle
                  --scans 40 --no-loop-closure --checkpoint-every 20
                  --map-format ply` into chiprun_out/runner, then the same
                  resumed from its ckpt_00020.npz: both exit 0 and write
                  every output, the summary has the JAX runner's keys,
-                 trajectory.tum one row a scan with a pose, ATE <= 0.25 m
+                 trajectory.tum one row a scan with a pose, ATE <= 0.25 m;
+                 then `--multihost` enrolled through JAX_COORDINATOR /
+                 JAX_NUM_PROCESSES=1 / JAX_PROCESS_ID=0 over 20 scans: exit
+                 0, the enrollment line, the summary's keys
 Then one JSON line of kernel numbers, the nvidia-smi line, and as the last
 line {"ok": true, "device": {...}}.  Without a card, or outside the
 repository, it exits non-zero and prints no result.
@@ -145,6 +175,30 @@ ATE_MARGIN_H_M = 0.05
 # and the JAX package's fused ATE on it, made the same way
 # (PYTHONPATH=. python tests/test_torch_loop.py HR)
 REF_FUSED_ATE_HR_M = 0.0468685702843051
+# path E: the window path in the "exact" feature mode, and the JAX package's
+# fused ATE on it, made the same way (PYTHONPATH=. python
+# tests/test_torch_loop.py E)
+REF_FUSED_ATE_E_M = 0.009689267535506679
+EXACT_LABEL_SCANS = 6
+# when the whole front end runs from the raw points on the card and on the
+# CPU, the labels may differ only where the projection's float32 ranges
+# differ, and in at most this share of the CPU's picks (6 of 1,715 measured
+# on an NVIDIA H100 80GB HBM3, 700.00 W; about 3x headroom)
+EXACT_E2E_MAX_SHARE = 0.01
+# path H-sparse: path H with max_keyframes=2048, where every solve is the
+# sparse one (optimize_cg), and the JAX package's fused ATE on it, made the
+# same way (PYTHONPATH=. python tests/test_torch_loop.py HS)
+REF_FUSED_ATE_HS_M = 0.04789136468507596
+# the edge-sharded solves on a one-card NCCL world against the one-device
+# solves on the same card
+DIST_TOL_M = 1e-5
+# the multi-stream replay: path V's config over B distinct streams (the
+# gentle trajectory at four speeds), 6 streamed + one 32-scan chunk each,
+# against each stream's own LinsSlam chunk in the same process
+STREAM_SPEEDS = (1.2, 1.5, 1.8, 2.1)
+STREAM_TOL_M = 1e-4
+# the runner enrolled through the reference's variables in a world of one
+MULTIHOST_SCANS = 20
 # the runner on the card: a radius run of the gentle sequence with a
 # checkpoint every RUNNER_CKPT scans, then a run resumed from the first
 RUNNER_SCANS = 40
@@ -208,7 +262,13 @@ HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
 
 
+_T0 = time.perf_counter()
+
+
 def log(msg):
+    """Print a line; a phase's heading carries the script's elapsed time."""
+    if msg.startswith("=="):
+        msg = f"{msg} [{time.perf_counter() - _T0:.1f} s]"
     print(msg, flush=True)
 
 
@@ -1561,22 +1621,27 @@ def _mapping_log(slam):
     return metrics
 
 
-def _count_loop_launches(mapper):
-    """Wrap the mapper's loop attempt so that the K3 launches made inside
-    the attempts are counted apart; returns the list they go to."""
+@contextlib.contextmanager
+def count_loop_launches():
+    """Count the K3 launches made inside each loop attempt (streamed or in
+    a chunk: both go through `mapper._loop_step_impl`); yields the list
+    they go to."""
+    from lins_tpu_torch.mapping import mapper
     from lins_tpu_torch.ops import select
 
-    inner = mapper._loop_step
-    per_attempt = []
+    inner, per_attempt = mapper._loop_step_impl, []
 
-    def loop_step(time_dev):
+    def loop_step(*args, **kw):
         before = select.select_candidates.launches
-        out = inner(time_dev)
+        out = inner(*args, **kw)
         per_attempt.append(select.select_candidates.launches - before)
         return out
 
-    mapper._loop_step = loop_step
-    return per_attempt
+    mapper._loop_step_impl = loop_step
+    try:
+        yield per_attempt
+    finally:
+        mapper._loop_step_impl = inner
 
 
 def _loop_log(mapper):
@@ -1655,8 +1720,8 @@ def phase_path_v(cfg, data):
 
     log("== 5. path V: bench.py's main cell, loop attempts on")
     slam = LinsSlam(cfg, enable_mapping=True)
-    in_loops = _count_loop_launches(slam.mapper)
-    r = replay(slam, data)
+    with count_loop_launches() as in_loops:
+        r = replay(slam, data)
     log_run("SLAM with loop attempts", slam, r)
     counts = r["counts"]
     _, ps, qs = slam.trajectory_arrays()
@@ -1762,8 +1827,8 @@ def phase_path_h(cfg, data, what="path H", ref_ate=REF_FUSED_ATE_H_M):
         + (", the radius-selected map" if cfg.lc_map_mode == "radius"
            else ""))
     slam = LinsSlam(cfg, enable_mapping=True)
-    in_loops = _count_loop_launches(slam.mapper)
-    r = replay(slam, data)
+    with count_loop_launches() as in_loops:
+        r = replay(slam, data)
     log_run("HDL-64 SLAM with loop closure", slam, r)
     counts = r["counts"]
     _, ps, qs = slam.trajectory_arrays()
@@ -2132,6 +2197,420 @@ def phase_runner():
     return summaries
 
 
+def phase_path_e(cfg, data, window_rate):
+    """The window path in the exact feature mode: the odometry and fused
+    ATEs of the same run, the gates of the window path, no host sync."""
+    from lins_tpu_torch.slam import LinsSlam
+    from lins_tpu_torch.utils.trajectory import ate
+
+    log("== 5. path E: the window map in the exact feature mode (the "
+        "reference's greedy picking)")
+    slam = LinsSlam(cfg, enable_mapping=True)
+    r = replay(slam, data, N_SCANS_WINDOW)
+    log_run("SLAM in the exact mode", slam, r)
+    counts = r["counts"]
+    _, ps, qs = slam.trajectory_arrays()
+    _, odo_ps, _ = slam.odometry.trajectory_arrays()
+    metrics = _mapping_log(slam)
+    n_gn = len(metrics) - 1
+    check(len(ps) == N_SCANS_WINDOW - 1 and len(odo_ps) == len(ps),
+          "one odometry and one fused pose per scan after the first")
+    check(counts["select"] >= 2 * n_gn and counts["select_plain"] == 0,
+          f"K3 launched {counts['select']} times >= 2 per mapping step "
+          f"against a map ({n_gn} steps), no plain selection")
+    check(counts["label"] > 0 and counts["label_plain"] == 0,
+          f"K1 launched {counts['label']} times, no plain labelling")
+    check_assoc(counts, cfg, N_SCANS_WINDOW)
+    check(r["syncs"] == 0, "no host sync in the warm chunk")
+    check(bool(np.isfinite(ps).all() and np.isfinite(qs).all()),
+          "every fused pose finite")
+    gt = data["gt_pos"][1:1 + len(ps)]
+    odo_err = ate(odo_ps, gt, align=True)
+    err = ate(ps, gt, align=True)
+    check(odo_err <= ATE_LIMIT_M,
+          f"odometry ATE {odo_err:.4f} m <= {ATE_LIMIT_M} m ({len(ps)} "
+          f"scans)")
+    lim = REF_FUSED_ATE_E_M + ATE_MARGIN_H_M
+    check(err <= odo_err and err <= lim,
+          f"fused ATE {err:.4f} m <= the odometry ATE {odo_err:.4f} m of "
+          f"the same run and <= the JAX package's {REF_FUSED_ATE_E_M:.4f} m"
+          f" + {ATE_MARGIN_H_M} m")
+    log(f"  {r['rate']:.3f} scans/s in the exact mode against the window "
+        f"path's {window_rate:.3f} (fast mode) in this call "
+        f"({r['rate'] / window_rate:.3f}x)")
+    return dict(r, slam=slam, ate=err, odo_ate=odo_err, ps=ps,
+                metrics=metrics)
+
+
+def phase_exact_labels(cfg, data):
+    """The exact mode's labels on the card against the port's CPU float32
+    labels on the first scans.  Gate: the greedy picking (`extract_rings`)
+    of the card's segmented scan equals the CPU's picking of the same scan
+    copied over.  Logged: the whole front end from the raw points on both,
+    with the picks that differ counted and, where they do, the first input
+    of the picking that differed.  Gate: every scan whose labels differ
+    has a projection cell that differs, and the differing labels are at
+    most `EXACT_E2E_MAX_SHARE` of the CPU's picks."""
+    import torch
+
+    from lins_tpu_torch.frontend import features as F
+    from lins_tpu_torch.frontend.pipeline import frontend_post, frontend_pre
+    from lins_tpu_torch.ops.label import label_components
+
+    log(f"== 7. exact-mode labels, card vs CPU float32 (first "
+        f"{EXACT_LABEL_SCANS} scans)")
+
+    def seg_of(xyz, n):
+        pre = frontend_pre(xyz, n, cfg)
+        labels = label_components(pre["e_right"], pre["e_down"],
+                                  pre["eligible"])
+        return frontend_post(labels, pre, cfg)[0]
+
+    picks, diff_e2e, notes = 0, 0, []
+    for k in range(EXACT_LABEL_SCANS):
+        xyz = np.asarray(data["scans_xyz"][k], np.float32)
+        n = int(data["scans_n"][k])
+        seg_g = seg_of(torch.as_tensor(xyz, device="cuda"),
+                       torch.tensor(n, dtype=torch.int32, device="cuda"))
+        lab_g = F.extract_rings(seg_g, cfg)[0].cpu()
+        seg_c = type(seg_g)(*(x.cpu() for x in seg_g))
+        lab_same = F.extract_rings(seg_c, cfg)[0]
+        check(bool((lab_g == lab_same).all()),
+              f"scan {k}: the card's greedy picks equal the CPU's on the "
+              f"same segmented scan ({int((lab_g != 0).sum())} picks)")
+        seg_cpu = seg_of(torch.as_tensor(xyz),
+                         torch.tensor(n, dtype=torch.int32))
+        lab_cpu = F.extract_rings(seg_cpu, cfg)[0]
+        picks += int((lab_cpu != 0).sum())
+        d = int((lab_g != lab_cpu).sum())
+        diff_e2e += d
+        if d:
+            cells, note = _first_difference(xyz, n, cfg)
+            notes.append(f"scan {k}: {d} labels differ; {note}")
+            check(cells > 0, f"scan {k}: the {d} differing labels follow "
+                  f"{cells} projection cells that differ")
+    log(f"  the whole front end from the raw points: {diff_e2e} of "
+        f"{picks} CPU picks differ on the card"
+        + "".join(f"; {t}" for t in notes))
+    check(diff_e2e <= EXACT_E2E_MAX_SHARE * picks,
+          f"the whole front end: {diff_e2e} differing labels <= "
+          f"{EXACT_E2E_MAX_SHARE} x {picks} picks")
+    return diff_e2e, picks
+
+
+def _first_difference(xyz, n, cfg):
+    """Where the front end's inputs to the picking first differ between the
+    card and the CPU on one raw scan: the projection's outputs cell by
+    cell (the winning point of each cell, its range in ulps).  Returns the
+    number of cells that differ and a note naming them."""
+    import torch
+
+    from lins_tpu_torch.frontend import projection as P
+
+    def proj(dev):
+        out = P.project(torch.as_tensor(xyz, device=dev),
+                        torch.tensor(n, dtype=torch.int32, device=dev), cfg)
+        return [x.cpu() for x in out[:3]]
+
+    (xg, rg, vg), (xc, rc, vc) = proj("cuda"), proj("cpu")
+    same_pt = (xg == xc).all(-1) & vg & vc
+    moved = int((vg != vc).sum() + (~(xg == xc).all(-1) & vg & vc).sum())
+    rd = (rg != rc) & same_pt
+    ulps = ((rg.view(torch.int32) - rc.view(torch.int32)).abs()[rd]
+            if bool(rd.any()) else torch.zeros(1, dtype=torch.int32))
+    return moved + int(rd.sum()), (
+        f"projection: {moved} cells with another winning point, "
+        f"{int(rd.sum())} cells whose range (sqrt of the same point's "
+        f"float32 squared norm) differs, by up to {int(ulps.max())} ulp")
+
+
+@contextlib.contextmanager
+def count_solves():
+    """Count the mapper's pose-graph solves by kind: `pose_graph.optimize`
+    (dense) and `optimize_cg` (sparse), looked up on the module."""
+    from lins_tpu_torch.graph import pose_graph as pg
+
+    calls = collections.Counter()
+    inner = {name: getattr(pg, name) for name in ("optimize", "optimize_cg")}
+
+    def counted(name):
+        def solve(*args, **kw):
+            calls[name] += 1
+            return inner[name](*args, **kw)
+        return solve
+
+    for name in inner:
+        setattr(pg, name, counted(name))
+    try:
+        yield calls
+    finally:
+        for name, fn in inner.items():
+            setattr(pg, name, fn)
+
+
+def _store_bytes(store):
+    return sum(x.numel() * x.element_size() for x in store
+               if hasattr(x, "numel"))
+
+
+def phase_path_hs(cfg, data):
+    """Path H with 2048 keyframe slots: every loop attempt's solve (computed
+    and selected on the card) and final_solve go through optimize_cg."""
+    with count_solves() as solves:
+        r = phase_path_h(cfg, data, "path H-sparse", REF_FUSED_ATE_HS_M)
+    store = r["slam"].mapper.state.store
+    K = store.capacity
+    nbytes = _store_bytes(store)
+    log(f"  the keyframe store: {K} slots, {nbytes / 2**20:.1f} MiB "
+        f"({nbytes / K / 1e3:.1f} kB a keyframe)")
+    log(f"  solves during the run: {dict(solves)}")
+    check(K == 2048 and solves["optimize_cg"] >= 1
+          and solves["optimize"] == 0,
+          f"{solves['optimize_cg']} sparse solves (optimize_cg) and no "
+          f"dense one above 1024 slots")
+    return dict(r, store_bytes=nbytes, solves=dict(solves))
+
+
+def _final_graph(slam):
+    """(pos, quat, live mask, live edge view, prior slot) of a mapper's
+    final state."""
+    import torch
+
+    from lins_tpu_torch.graph import pose_graph as pg
+    from lins_tpu_torch.mapping import keyframes as kf
+
+    st = slam.mapper.state
+    store = st.store
+    K = store.capacity
+    return (store.pos, store.quat, kf.live_mask(store),
+            pg.live_view(st.edges, store.count, K),
+            torch.remainder(torch.clamp(store.count - K, min=0), K))
+
+
+def phase_sparse_solve(slam):
+    """One optimize_cg on path H-sparse's final state under the profiler,
+    then card float32 against a CPU float64 copy (1 mm, 0.001 rad)."""
+    from lins_tpu_torch.graph import pose_graph as pg
+
+    log("== 6. the sparse solve on path H-sparse's final state")
+    cfg = slam.mapper.cfg
+    pos, quat, live, ev, prior = _final_graph(slam)
+    prof, solved = profile_call(lambda: pg.optimize_cg(
+        pos, quat, live, ev, 8, prior_slot=prior,
+        huber_delta=cfg.pg_loop_huber))
+    log_profile(f"one sparse solve (8 GN x 64 CG iterations, "
+                f"{pos.shape[0]} slots, {int(live.sum())} keyframes)", prof)
+    pos_c, quat_c, live_c, ev_c, prior_c = _cpu64((pos, quat, live, ev,
+                                                   prior))
+    want = pg.optimize_cg(pos_c, quat_c, live_c, ev_c, 8, prior_slot=prior_c,
+                          huber_delta=cfg.pg_loop_huber)
+    lv = live_c.numpy()
+    got = [x.cpu().double().numpy()[lv] for x in solved]
+    want = [x.numpy()[lv] for x in want]
+    moved = float(np.abs(want[0] - pos_c.numpy()[lv]).max())
+    dp = float(np.abs(got[0] - want[0]).max())
+    dq = _quat_gap(got[1], want[1])
+    check(bool(np.isfinite(got[0]).all()) and moved > 0
+          and dp <= SOLVE_CPU_TOL_M and dq <= SOLVE_CPU_TOL_RAD,
+          f"optimize_cg ({int(lv.sum())} keyframes, moved up to "
+          f"{moved:.6f} m): card vs CPU float64 positions {dp:.2e} m <= "
+          f"{SOLVE_CPU_TOL_M} m, rotations {dq:.2e} rad <= "
+          f"{SOLVE_CPU_TOL_RAD} rad")
+    return prof, dp
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_distributed(slam):
+    """The edge-sharded solves in an NCCL world of one process (TCP on
+    127.0.0.1) over a one-card mesh, on path H's final graph, against the
+    one-device solves on the same card; the group is destroyed after."""
+    from lins_tpu_torch.graph import pose_graph as pg
+    from lins_tpu_torch.parallel import dist_graph, multihost
+
+    log("== 7. distributed solves: an NCCL world of one")
+    check(multihost.initialize(f"127.0.0.1:{_free_port()}", 1, 0,
+                               device="cuda"),
+          "enrolled through torch.distributed (NCCL)")
+    out = {}
+    try:
+        mesh = multihost.global_mesh()
+        check(mesh.group is not None and mesh.size == 1,
+              f"a one-card mesh with its process group: {mesh}")
+        pos, quat, live, ev, prior = _final_graph(slam)
+        K = pos.shape[0]
+        for name, make, single in (
+                ("dense", dist_graph.make_sharded_optimizer, pg.optimize),
+                ("sparse", dist_graph.make_sharded_cg_optimizer,
+                 pg.optimize_cg)):
+            t0 = time.perf_counter()
+            got = make(mesh, K, iters=8)(pos, quat, live, ev,
+                                         prior_slot=prior)
+            want = single(pos, quat, live, ev, 8, prior_slot=prior)
+            lv = live.cpu().numpy()
+            dp = float((got[0] - want[0]).abs().cpu().numpy()[lv].max())
+            moved = float((want[0] - pos).abs().cpu().numpy()[lv].max())
+            check(dp <= DIST_TOL_M and moved > 0,
+                  f"edge-sharded {name} solve ({int(lv.sum())} keyframes, "
+                  f"{K} slots, moved up to {moved:.6f} m) vs the one-device "
+                  f"solve: {dp:.2e} m <= {DIST_TOL_M} m "
+                  f"({time.perf_counter() - t0:.2f} s)")
+            out[name] = dp
+    finally:
+        multihost.shutdown()
+    return out
+
+
+def phase_multi_stream(cfg):
+    """make_sharded_slam_replay over a one-card mesh with distinct VLP-16
+    streams, against each stream's own LinsSlam chunk in this process; both
+    timed alike (fenced, in PyTorch's sync debug mode)."""
+    import torch
+
+    from lins_tpu_torch.datasets.synthetic import generate_sequence
+    from lins_tpu_torch.parallel import replay as rp
+    from lins_tpu_torch.slam import LinsSlam
+    from lins_tpu_torch.utils.trajectory import ate
+    from lins_tpu_torch.utils.tree import tree_map
+
+    B, n_scans = len(STREAM_SPEEDS), WARMUP_SCANS + K_CHUNK
+    log(f"== 5. multi-stream replay: {B} VLP-16 streams (speeds "
+        f"{STREAM_SPEEDS} m/s) of {n_scans} scans on a one-card mesh")
+    streams = []
+    for speed in STREAM_SPEEDS:
+        data = generate_sequence(cfg, n_scans=n_scans, kind="gentle",
+                                 speed=speed)
+        slam = LinsSlam(cfg, enable_mapping=True)
+        jobs, tail = slam.stage_replay(data, n_scans, chunk=K_CHUNK,
+                                       min_streamed=WARMUP_SCANS)
+        check(len(jobs) == 1 and not tail,
+              f"speed {speed}: {WARMUP_SCANS} scans streamed, one chunk of "
+              f"{K_CHUNK} staged")
+        streams.append((data, slam, jobs[0]))
+    mf, lf = streams[0][2][1][1:3]
+    check(all((j[1][1] == mf).all() and (j[1][2] == lf).all()
+              for _, _, j in streams),
+          f"the streams share their cadence flags ({int(mf.sum())} mapping "
+          f"steps, {int(lf.sum())} loop attempts in the chunk)")
+    odo = rp.stack_lanes([tree_map(torch.clone, (
+        s.odometry.filter_state, s.odometry.global_state,
+        s.odometry.last_surf, s.odometry.last_corner))
+        for _, s, _ in streams])
+    maps = rp.stack_lanes([tree_map(torch.clone, s.mapper.state)
+                           for _, s, _ in streams])
+    chunk = [torch.stack([j[0][i] for _, _, j in streams]) for i in (1, 2)]
+    imu = [torch.stack([j[0][3][i] for _, _, j in streams])
+           for i in range(4)]
+    ts = torch.stack([j[1][0] for _, _, j in streams])
+    rpy = torch.stack([j[1][3] for _, _, j in streams])
+    step, put = rp.make_sharded_slam_replay(cfg, rp.make_mesh(1))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    with count_host_syncs() as sites:
+        _, _, (pos, quat) = step(*put((odo, maps)), *put(chunk), *put(imu),
+                                 put(ts), put(rpy), mf, lf, has_map=True)
+        torch.cuda.synchronize()
+    batch_s = time.perf_counter() - t0
+    counts = _counts()
+    peak = torch.cuda.max_memory_allocated()
+    syncs = sum(sites.values())
+    single_s, diffs, equal, errs = [], [], True, []
+    for b, (data, slam, job) in enumerate(streams):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with count_host_syncs() as s1:
+            slam.run_chunk(job)
+            torch.cuda.synchronize()
+        single_s.append(time.perf_counter() - t0)
+        _, ps, qs = slam.trajectory_arrays()
+        got = pos[b].cpu().numpy()
+        diffs.append(float(np.abs(got - ps[-K_CHUNK:]).max()))
+        equal &= bool((got == ps[-K_CHUNK:]).all()
+                      and (quat[b].cpu().numpy() == qs[-K_CHUNK:]).all())
+        check(sum(s1.values()) == 0,
+              f"stream {b}: no host sync in its own chunk")
+        full = np.concatenate([ps[:-K_CHUNK], got])
+        errs.append(ate(full, data["gt_pos"][1:1 + len(full)], align=True))
+    log(f"  batch of {B}: {B * K_CHUNK} scans in {batch_s:.3f} s "
+        f"({B * K_CHUNK / batch_s:.3f} scans/s); each stream alone: "
+        + ", ".join(f"{t:.3f}" for t in single_s) + f" s ("
+        f"{K_CHUNK * B / sum(single_s):.3f} scans/s); peak "
+        f"{peak / 2**20:.1f} MiB; fused ATEs "
+        + ", ".join(f"{e:.4f}" for e in errs) + " m; launch counts "
+        f"{counts}")
+    check(max(diffs) <= STREAM_TOL_M,
+          f"each stream's fused poses within {STREAM_TOL_M} m of its own "
+          f"run: max {max(diffs):.2e} m ("
+          + ("bit for bit" if equal else "not bit for bit") + ")")
+    check(syncs == 0, "no host sync in the batched chunk")
+    check(max(errs) <= ATE_LIMIT_M and len({round(e, 6) for e in errs}) == B,
+          f"distinct streams, every fused ATE <= {ATE_LIMIT_M} m")
+    return dict(rate=B * K_CHUNK / batch_s,
+                single_rate=K_CHUNK * B / sum(single_s), chunk_s=[batch_s],
+                ate=max(errs), syncs=syncs, counts=counts, peak_bytes=peak,
+                max_diff=max(diffs), bit_equal=equal)
+
+
+def phase_dryrun():
+    import torch
+
+    from lins_tpu_torch.parallel import dryrun
+
+    log("== 7. the dry run (parallel/dryrun.py)")
+    fn, args = dryrun.entry()
+    rn, qbn, res = fn(*args)
+    check(rn.shape == (3,) and bool(torch.isfinite(rn).all()),
+          f"entry(): the forward step ran on {rn.device}, residual "
+          f"{float(res):.4f}")
+    n = torch.cuda.device_count()
+    report = dryrun.dryrun_multichip(n)
+    check(report["shards"] == n and len(report["ran"]) == 3,
+          f"dryrun_multichip({n}): {report['ran']}; skipped "
+          f"{report['skipped']}")
+
+
+def phase_runner_multihost():
+    """The runner with --multihost, enrolled through the reference's
+    variables in a world of one: exit 0, the enrollment line, the
+    summary's keys."""
+    log("== 8. the runner with --multihost")
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = os.path.join(root, "chiprun_out", "runner_multihost")
+    shutil.rmtree(out, ignore_errors=True)
+    env = dict(os.environ, JAX_COORDINATOR=f"127.0.0.1:{_free_port()}",
+               JAX_NUM_PROCESSES="1", JAX_PROCESS_ID="0")
+    cmd = [sys.executable, "-m", "lins_tpu_torch.run_slam", "--multihost",
+           "--synthetic", "gentle", "--scans", str(MULTIHOST_SCANS),
+           "--no-loop-closure", "--out", out]
+    t0 = time.perf_counter()
+    p = subprocess.run(cmd, cwd=root, env=env, capture_output=True,
+                       text=True, timeout=RUNNER_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    if p.returncode:
+        log(p.stdout[-3000:] + p.stderr[-3000:])
+    check(p.returncode == 0, f"exit 0 ({wall:.1f} s)")
+    lines = [json.loads(t) for t in p.stdout.splitlines()
+             if t.startswith("{")]
+    enroll, summary = lines[0], lines[-1]
+    check(enroll == dict(multihost=True, process_index=0, process_count=1,
+                         global_devices=1),
+          f"the enrollment line: {enroll}")
+    check(set(summary) == RUNNER_SUMMARY_KEYS,
+          f"the summary has phase 8's keys: {summary}")
+    for name in os.listdir(out):
+        if name.endswith(".npz"):
+            os.unlink(os.path.join(out, name))
+    return summary
+
+
 def _idle(p):
     return 1 - p["busy_ms"] / p["wall_ms"] if p["launches"] else math.nan
 
@@ -2156,6 +2635,8 @@ def main():
                           loop_time_gate=4.0)
     cfg_r = cfg_v.replace(loop_closure_enabled=False)
     cfg_hr = cfg_h.replace(lc_map_mode="radius")
+    cfg_e = cfg_map.replace(feature_mode="exact")
+    cfg_hs = cfg_h.replace(max_keyframes=2048)
     t0 = time.perf_counter()
     data = generate_sequence(cfg, n_scans=N_SCANS, kind="gentle", speed=1.5)
     data_h = generate_sequence(cfg_h, n_scans=N_SCANS_H, **SEQ_H)
@@ -2174,7 +2655,11 @@ def main():
     ph = phase_path_h(cfg_h, data_h)
     pr = phase_path_r(cfg_r, data, odo["ps"])
     phr = phase_path_h(cfg_hr, data_h, "path H-radius", REF_FUSED_ATE_HR_M)
-    runs = dict(odometry=odo, window=mp, V=pv, H=ph, R=pr, HR=phr)
+    pe = phase_path_e(cfg_e, data, mp["rate"])
+    phs = phase_path_hs(cfg_hs, data_h)
+    pms = phase_multi_stream(cfg_v)
+    runs = dict(odometry=odo, window=mp, V=pv, H=ph, R=pr, HR=phr, E=pe,
+                HS=phs, MS=pms)
     # each kernel's launches: the sum of its counts over the main-path runs,
     # each read just after its own run
     k1["launches"] = sum(r["counts"]["label"] for r in runs.values())
@@ -2205,6 +2690,13 @@ def main():
         f"{lost:.4f} ms (launches x (ms - bound))")
     attempt, solve, attempt_out, solved = phase_profiles(
         cfg, data, mp["slam"], ph["slam"])
+    odo_e, _ = warm_odometry(cfg_e, data, WARMUP_SCANS - 1)
+    k = WARMUP_SCANS - 1
+    exact_scan, _ = profile_call(lambda: odo_e.add_scan(
+        data["scan_times"][k] + cfg.scan_period, data["scans_xyz"][k],
+        data["scans_n"][k]))
+    log_profile("one RUNNING add_scan in the exact mode", exact_scan)
+    sparse, sparse_dp = phase_sparse_solve(phs["slam"])
     k3["max_abs_err"] = max(k3["max_abs_err"],
                             phase_k3_loop(ph["slam"], cfg_h.s2m_cand))
     diff = phase_cpu_check(cfg, data, odo["ps"])
@@ -2212,11 +2704,17 @@ def main():
                                       mp["ps"], mp["metrics"])
     hdiff, hrel = phase_cpu_map_check("path H (HDL-64)", cfg_h, data_h,
                                       ph["ps"], ph["metrics"])
+    dist = phase_distributed(ph["slam"])
     sdiff = phase_loop_cpu_check(ph["slam"], attempt_out, solved)
     rdiff, rrel = phase_cpu_map_check("path R (radius map)", cfg_r, data,
                                       pr["ps"], pr["metrics"])
     phase_hr_final_solve(phr["slam"])
+    ediff, erel = phase_cpu_map_check("path E (exact mode)", cfg_e, data,
+                                      pe["ps"], pe["metrics"])
+    label_diff, label_picks = phase_exact_labels(cfg_e, data)
+    phase_dryrun()
     runner = phase_runner()
+    runner_mh = phase_runner_multihost()
     log(f"  summary on {smi}:")
     for name, r in runs.items():
         log(f"    {name}: {r['rate']:.3f} scans/s, ATE {r['ate']:.4f} m, "
@@ -2227,6 +2725,26 @@ def main():
         f"final solve {sdiff:.2e} m; R {rdiff:.6f} m, matches {rrel:.4f}")
     log(f"    R: the selection changed {pr['changes']} times; H-radius: "
         f"{phr['n_loops']} loops, {phr['n_kf']} keyframes")
+    log(f"    E: odometry ATE {pe['odo_ate']:.4f} m, {pe['rate']:.3f} scans/s"
+        f" against the window path's {mp['rate']:.3f}; card vs CPU "
+        f"{ediff:.6f} m, matches {erel:.4f}; labels from the raw points "
+        f"{label_diff} of {label_picks} picks differ; one RUNNING scan "
+        f"{exact_scan['launches']} launches, busy "
+        f"{exact_scan['busy_ms']:.3f} ms, idle share "
+        f"{_idle(exact_scan):.4f}")
+    log(f"    H-sparse: {phs['n_loops']} loops, {phs['n_kf']} keyframes, "
+        f"store {phs['store_bytes'] / 2**20:.1f} MiB, solves "
+        f"{phs['solves']}; one sparse solve {sparse['launches']} launches, "
+        f"busy {sparse['busy_ms']:.3f} ms, idle share {_idle(sparse):.4f}; "
+        f"card vs CPU {sparse_dp:.2e} m")
+    log(f"    distributed solves vs one device: dense {dist['dense']:.2e} m, "
+        f"sparse {dist['sparse']:.2e} m")
+    log(f"    multi-stream: {pms['rate']:.3f} scans/s batched against "
+        f"{pms['single_rate']:.3f} one stream at a time; max difference "
+        f"{pms['max_diff']:.2e} m (bit for bit: {pms['bit_equal']})")
+    log(f"    runner --multihost: {runner_mh['scans']} scans at "
+        f"{runner_mh['scans_per_sec']} scans/s, ATE "
+        f"{runner_mh['ate_rmse_m']} m")
     log("    runner: " + "; ".join(
         f"{s['scans']} scans at {s['scans_per_sec']} scans/s, warm-up "
         f"{s['compile_s']} s, ATE {s['ate_rmse_m']} m" for s in runner))

@@ -40,8 +40,7 @@ class SlamConfig:
     # feature picking mode: "exact" replays the reference's sequential greedy
     # suppression loops (StateEstimator.hpp:719-827); "fast" picks curvature
     # local extrema in ±5-point windows — the same spacing the greedy
-    # suppression enforces — in a handful of vector ops.  The port has
-    # "fast" only; "exact" raises NotImplementedError.
+    # suppression enforces — in a handful of vector ops.
     feature_mode: str = "fast"
     # split per-chunk driver (pre -> label kernel -> rest); see module doc
     use_pallas: bool = False

@@ -1,11 +1,14 @@
 """Per-ring compaction, sweep timing, curvature and LOAM feature extraction
 (port of `lins_tpu/frontend/features.py`; reference StateEstimator.hpp:619-827).
 
-The port has the "fast" picking mode, the reference package's default:
-curvature local extrema in ±5-point windows with per-sector caps.  The
-"exact" mode (the reference's sequential greedy suppression) raises
-NotImplementedError.  Each ring is a row of an (L, S) tensor, so every
-per-ring step runs over all rings at once.
+Both picking modes of the reference package: "fast" (its default,
+curvature local extrema in ±5-point windows with per-sector caps) and
+"exact" (the reference's sequential greedy picking with its ±5-point
+suppression, then a centroid per voxel of each ring's less-flat points).
+Each ring is a row of an (L, S) tensor, so every per-ring step runs over
+all rings at once; the exact mode's greedy picks are fixed trips over the
+rows with their carries frozen where a row has nothing left to pick, so
+nothing is read back to the host.
 """
 from __future__ import annotations
 
@@ -213,6 +216,84 @@ def extract_features_fast(seg: SegmentedScan, cfg: SlamConfig):
 
 
 # ---------------------------------------------------------------------------
+# Greedy sector picking (the "exact" mode: the reference's semantics)
+# ---------------------------------------------------------------------------
+
+def _suppress(picked, ind, gap_ok, do):
+    """Mark `ind` and its ±5 neighbours picked on each row where `do`,
+    stopping at a column gap > 10 (StateEstimator.hpp:763-777); gap_ok[i]
+    == (|col[i] - col[i-1]| <= 10).  picked, gap_ok (L,S); ind, do (L,).
+
+    Dense over the row: position ind + l (0 < l <= 5) is marked when every
+    gap_ok[ind+1 .. ind+l] holds, ind - l when every gap_ok[ind-l+1 .. ind]
+    does.  No scatter, so the reference's clipped duplicate writes at a
+    ring's ends have nothing to race."""
+    S = picked.shape[-1]
+    offs = torch.arange(1, 6, device=picked.device)
+    fwd = gap_ok.gather(1, torch.clamp(ind[:, None] + offs, max=S - 1))
+    bwd = gap_ok.gather(1, torch.clamp(ind[:, None] - offs + 1, min=0))
+    runs = torch.cat([torch.flip(torch.cumprod(bwd.to(torch.int32), dim=1),
+                                 [1]),
+                      torch.ones_like(fwd[:, :1], dtype=torch.int32),
+                      torch.cumprod(fwd.to(torch.int32), dim=1)], dim=1)
+    runs = (runs > 0) & do[:, None]
+    d = torch.arange(S, device=picked.device) - ind[:, None]
+    near = runs.gather(1, torch.clamp(d + 5, 0, 10)) & (torch.abs(d) <= 5)
+    return picked | near
+
+
+def extract_rings(seg: SegmentedScan, cfg: SlamConfig):
+    """Feature labels of every compacted ring by the reference's greedy
+    picking (extractFeatures, StateEstimator.hpp:719-827): per ring, 6
+    sectors in turn, each up to `edge_less_feature_num` greedy corner picks
+    (the first `edge_feature_num` sharp) then `surf_feature_num` flat picks,
+    every pick suppressing its ±5 neighbours across sector boundaries.
+    Ties go to the first index (`torch.argmax` / `argmin`, as
+    `jnp.argmax` / `argmin`).  Returns (label (L,S) int32: 2 sharp, 1
+    less-sharp, -1 flat, 0 other; less_flat mask)."""
+    L, S = seg.rng.shape
+    dev = seg.rng.device
+    count = seg.count
+    curv, curv_ok = curvature_ring(seg.rng, count)
+    picked = occlusion_ring(seg.rng, seg.col, count)
+    gap_ok = torch.abs(seg.col - _shift(seg.col, 1, 10 ** 6)) <= 10
+    idx = torch.arange(S, device=dev)
+    e_idx = count - 6
+    label = torch.zeros((L, S), dtype=torch.int32, device=dev)
+    corner_ok = curv_ok & seg.valid & (curv > cfg.edge_threshold) & ~seg.ground
+    flat_ok = curv_ok & seg.valid & (curv < cfg.surf_threshold) & seg.ground
+
+    def pick(cand, best, fill, value):
+        """One greedy pick on every row: the best unpicked candidate, if
+        any and the sector is not empty, gets `value` and suppresses its
+        neighbours."""
+        nonlocal picked, label
+        cand = cand & ~picked
+        do = torch.any(cand, dim=1) & nonempty
+        ind = best(torch.where(cand, curv, fill), dim=1)
+        label = torch.where((idx == ind[:, None]) & do[:, None],
+                            value[:, None], label)
+        picked = _suppress(picked, ind, gap_ok, do)
+        return do.to(torch.int32)
+
+    flat = torch.full((L,), -1, dtype=torch.int32, device=dev)
+    for j in range(6):         # the reference's 6 sectors a ring
+        sp = torch.div(5 * (6 - j) + e_idx * j, 6, rounding_mode="floor")
+        ep = torch.div(5 * (5 - j) + e_idx * (j + 1), 6,
+                       rounding_mode="floor") - 1
+        sector = (idx >= sp[:, None]) & (idx <= ep[:, None])
+        nonempty = sp < ep
+        n = torch.zeros(L, dtype=torch.int32, device=dev)
+        for _ in range(cfg.edge_less_feature_num):
+            value = torch.where(n < cfg.edge_feature_num, 2, 1).to(torch.int32)
+            n = n + pick(sector & corner_ok, torch.argmax, -math.inf, value)
+        for _ in range(cfg.surf_feature_num):
+            pick(sector & flat_ok, torch.argmin, math.inf, flat)
+    sector_all = (idx >= 5) & (idx <= e_idx[:, None]) & seg.valid
+    return label, sector_all & (label <= 0)
+
+
+# ---------------------------------------------------------------------------
 # Voxel thinning
 # ---------------------------------------------------------------------------
 
@@ -242,18 +323,78 @@ def voxel_mask_hash(xyz, mask, leaf, table: int = 1 << 14):
     return keep.reshape(shape)
 
 
+def _voxel_hash32(xyz, leaf):
+    """The reference package's int32 voxel hash of each point: cell =
+    floor(xyz / leaf) (`div_const`, as XLA folds the division), mixed by
+    three primes in int32 with wraparound.  Formed in int64 (exact) and
+    wrapped to int32: the low 32 bits of products and xors do not depend
+    on the wider type."""
+    v = torch.floor(div_const(xyz, leaf)).to(torch.int32).to(torch.int64)
+    h = ((v[..., 0] * 73856093) ^ (v[..., 1] * 19349663)
+         ^ (v[..., 2] * 83492791))
+    return (torch.remainder(h + 2 ** 31, 2 ** 32) - 2 ** 31).to(torch.int32)
+
+
+def voxel_downsample_ring(xyz, rel, mask, leaf):
+    """Centroid per voxel of each ring's masked points, all rings at once:
+    xyz (L,S,3), rel (L,S), mask (L,S).  Each row is sorted (stably) by
+    the int32 voxel hash, unmasked points last; each run of equal hashes
+    gives its centroid and mean sweep time at the run's first slot.
+    Returns (xyz (L,S,3), rel (L,S), mask (L,S)) in the sorted order, as the
+    reference package's `voxel_downsample_ring` does per ring.
+
+    The run sums come from prefix-sum differences, as in the reference,
+    but the prefix sums are taken in float64 whatever the dtype: in float32
+    a prefix over a ring of points 30 m out reaches about 5e4 m and each
+    difference loses millimetres (PERF.md §4)."""
+    L, S = mask.shape
+    dev = xyz.device
+    h = torch.where(mask, _voxel_hash32(xyz, leaf),
+                    torch.iinfo(torch.int32).max)
+    hs, order = torch.sort(h, dim=1, stable=True)
+    xs = torch.gather(xyz, 1, order[..., None].expand(L, S, 3))
+    rs = torch.gather(rel, 1, order)
+    ms = torch.gather(mask, 1, order)
+
+    first = torch.ones((L, 1), dtype=torch.bool, device=dev)
+    start = torch.cat([first, hs[:, 1:] != hs[:, :-1]], dim=1) & ms
+
+    def prefix(x):
+        z = torch.zeros_like(x[:, :1])
+        return torch.cat([z, torch.cumsum(x, dim=1)], dim=1)
+
+    cx = prefix(torch.where(ms[..., None], xs, 0.0).double())
+    cr = prefix(torch.where(ms, rs, 0.0).double())
+    cn = prefix(ms.to(torch.int32))
+    # the end of the run at i: the first run start after i (or S), by a
+    # reverse cumulative minimum
+    next_start = torch.cat([start[:, 1:], first], dim=1)
+    pos = torch.where(next_start, torch.arange(1, S + 1, device=dev), S)
+    next_pos = torch.flip(torch.cummin(torch.flip(pos, [1]), dim=1)[0], [1])
+    n_run = torch.clamp(cn.gather(1, next_pos) - cn[:, :S], min=1)
+    cent = ((cx.gather(1, next_pos[..., None].expand(L, S, 3)) - cx[:, :S])
+            / n_run[..., None]).to(xyz.dtype)
+    cent_rel = ((cr.gather(1, next_pos) - cr[:, :S]) / n_run).to(rel.dtype)
+    return (torch.where(start[..., None], cent, 0.0),
+            torch.where(start, cent_rel, 0.0), start)
+
+
 # ---------------------------------------------------------------------------
 # Flat compaction of (L,S) masked sets into padded FeatureClouds
 # ---------------------------------------------------------------------------
 
 def _compact_scatter_packed(seg: SegmentedScan, label, lf_mask, outlier_xyz,
-                            outlier_mask, cfg: SlamConfig) -> ScanFeatures:
-    """All five feature-set compactions as three scatters into one packed
+                            outlier_mask, cfg: SlamConfig, lf_xyz=None,
+                            lf_rel=None) -> ScanFeatures:
+    """All five feature-set compactions as scatters into one packed
     buffer.  The sets that share a scatter are disjoint: sharp (label 2) +
     flat (-1), less_sharp (>= 1) + less_flat (<= 0, voxel-thinned), and the
-    outliers (their own source grid).  Every masked cell past its set's
-    cap, and every unmasked cell, targets the one dropped overflow slot, so
-    the kept slots each have a single writer."""
+    outliers (their own source grid).  When the less-flat points have a
+    source of their own (`lf_xyz`, `lf_rel`: the exact mode's centroids),
+    less-flat and less-sharp each get a scatter of their own instead.
+    Every masked cell past its set's cap, and every unmasked cell, targets
+    the one dropped overflow slot, so the kept slots each have a single
+    writer."""
     L, S = label.shape
     n = L * S
     dev, dtype = seg.xyz.device, seg.xyz.dtype
@@ -286,7 +427,12 @@ def _compact_scatter_packed(seg: SegmentedScan, label, lf_mask, outlier_xyz,
                                                  device=dev), rings], dim=-1)
     buf[torch.minimum(tgt(0), tgt(1))] = packed
     buf[tgt(3)] = packed_o
-    buf[torch.minimum(tgt(4), tgt(2))] = packed
+    if lf_xyz is None:
+        buf[torch.minimum(tgt(4), tgt(2))] = packed
+    else:
+        buf[tgt(4)] = packed
+        buf[tgt(2)] = torch.cat([lf_xyz.reshape(-1, 3),
+                                 lf_rel.reshape(-1)[:, None], rings], dim=-1)
 
     def cloud(i):
         sl = slice(int(base[i]), int(base[i + 1]))
@@ -301,12 +447,16 @@ def _compact_scatter_packed(seg: SegmentedScan, label, lf_mask, outlier_xyz,
 
 def extract_features(seg: SegmentedScan, outlier_xyz, outlier_mask,
                      cfg: SlamConfig) -> ScanFeatures:
-    """All feature sets for a segmented scan."""
-    if cfg.feature_mode != "fast":
-        raise NotImplementedError(
-            f"feature_mode={cfg.feature_mode!r}: the port has the 'fast' "
-            f"mode only; 'exact' is the port's next slice")
-    label, less_flat_mask = extract_features_fast(seg, cfg)
-    lf_mask = voxel_mask_hash(seg.xyz, less_flat_mask, cfg.surf_leaf_size)
+    """All feature sets for a segmented scan, in `cfg.feature_mode`:
+    "fast" (local extrema, the first point of each voxel) or "exact" (the
+    reference's greedy picking, the centroid of each voxel a ring)."""
+    if cfg.feature_mode == "fast":
+        label, less_flat_mask = extract_features_fast(seg, cfg)
+        lf_mask = voxel_mask_hash(seg.xyz, less_flat_mask, cfg.surf_leaf_size)
+        return _compact_scatter_packed(seg, label, lf_mask, outlier_xyz,
+                                       outlier_mask, cfg)
+    label, less_flat_mask = extract_rings(seg, cfg)
+    lf_xyz, lf_rel, lf_mask = voxel_downsample_ring(
+        seg.xyz, seg.rel_time, less_flat_mask, cfg.surf_leaf_size)
     return _compact_scatter_packed(seg, label, lf_mask, outlier_xyz,
-                                   outlier_mask, cfg)
+                                   outlier_mask, cfg, lf_xyz, lf_rel)

@@ -13,8 +13,17 @@ the reference package.  Per iteration:
     read back to the host, a failed factorisation becomes a non-finite step,
     as JAX's Cholesky returns NaN) and a boxplus update.
 A failed step is a no-op iteration.  Edges and nodes live in fixed-capacity
-masked arrays.  The matrix-free sparse solve (`optimize_cg`, which the
-reference takes above 1024 keyframes) is the port's parallel slice.
+masked arrays.
+
+`optimize_cg` solves the same problem matrix-free, as the reference does
+above 1024 keyframes, where the dense (6K)² matrix walls out: per Gauss-
+Newton iteration the per-edge residuals and Jacobians, the gradient and
+the 6x6 block diagonal by scatter-adds, then a fixed number of
+block-Jacobi-preconditioned CG iterations whose (H + diag) v products are
+per-edge 6x6 contractions and scatter-adds (O(E) memory).  The blocks are
+inverted by a batched `torch.linalg.inv_ex`, and the non-finite guard
+stays on the device: no host read.  `parallel/dist_graph.py` shards the same edge terms over
+devices.
 """
 from __future__ import annotations
 
@@ -25,8 +34,8 @@ import torch
 from lins_tpu_torch.geom import so3
 from lins_tpu_torch.mapping.keyframes import put_row
 
-PARALLEL_SLICE = ("the port's parallel slice (the sparse solve and the "
-                  "sharded store)")
+PARALLEL_SLICE = ("the sharded keyframe store, the rest of the port's "
+                  "parallel slice")
 
 
 class EdgeSet(NamedTuple):
@@ -180,16 +189,21 @@ def build_normal_system(pos, quat, edges: EdgeSet, huber_delta: float = 0.0):
     return H.reshape(K, 6, K, 6), g
 
 
+def _diag_weights(active, K: int, prior_slot, prior_w, damping, dtype):
+    """The gauge prior on `prior_slot` and on dead slots, damping on the
+    rest (K,)."""
+    node_ids = torch.arange(K, device=active.device)
+    pw = torch.full((), prior_w, dtype=dtype, device=active.device)
+    return torch.where(node_ids == prior_slot, pw,
+                       torch.where(active, damping, pw)).to(dtype)
+
+
 def solve_and_clamp(H, g, active, prior_w, damping, prior_slot=0):
     """Add the gauge prior and damping, Cholesky-solve, zero the inactive
     nodes' updates.  A factorisation that fails (info != 0) gives a
     non-finite step."""
     K = g.shape[0]
-    dtype, dev = g.dtype, g.device
-    node_ids = torch.arange(K, device=dev)
-    pw = torch.full((), prior_w, dtype=dtype, device=dev)
-    diag_w = torch.where(node_ids == prior_slot, pw,
-                         torch.where(active, damping, pw))
+    diag_w = _diag_weights(active, K, prior_slot, prior_w, damping, g.dtype)
     Hd = H.reshape(6 * K, 6 * K) + torch.diag(
         torch.repeat_interleave(diag_w, 6))
     L, info = torch.linalg.cholesky_ex(Hd)
@@ -197,6 +211,16 @@ def solve_and_clamp(H, g, active, prior_w, damping, prior_slot=0):
     x = torch.linalg.solve_triangular(L.mT, y, upper=True)
     dx = torch.where(info == 0, -x.reshape(K, 6), torch.nan)
     return torch.where(active[:, None], dx, 0.0)
+
+
+def gn_update(pos, quat, dx, active):
+    """The boxplus update of one Gauss-Newton iteration: inactive nodes
+    stay, and a step with any non-finite entry is a no-op (the reference's
+    NaN scrub, lidar_mapping_node.cpp:738-750)."""
+    dx = torch.where(active[:, None], dx, 0.0)
+    dx = torch.where(torch.all(torch.isfinite(dx)), dx, 0.0)
+    quat = so3.quat_normalize(so3.quat_mul(quat, so3.exp_axis(dx[:, 0:3])))
+    return pos + dx[:, 3:6], quat
 
 
 def optimize(pos, quat, active, edges: EdgeSet, iters: int = 8,
@@ -212,20 +236,99 @@ def optimize(pos, quat, active, edges: EdgeSet, iters: int = 8,
     for _ in range(iters):
         H, g = build_normal_system(pos, quat, edges, huber_delta)
         dx = solve_and_clamp(H, g, active, prior_w, damping, prior_slot)
-        dx = torch.where(torch.all(torch.isfinite(dx)), dx, 0.0)
-        quat = so3.quat_normalize(so3.quat_mul(quat,
-                                               so3.exp_axis(dx[:, 0:3])))
-        pos = pos + dx[:, 3:6]
+        pos, quat = gn_update(pos, quat, dx, active)
     return pos, quat
+
+
+# --- sparse (matrix-free) solve -------------------------------------------
+
+def _edge_system(pos, quat, edges: EdgeSet, huber_delta: float = 0.0):
+    """Per-edge residuals (E,6), Jacobians (E,6,6) x 2 and weights (E,6),
+    zero on invalid edges; huber_delta > 0 IRLS-downweights loop edges."""
+    ii, jj = edges.i.long(), edges.j.long()
+    r, Ji, Jj, w = _edge_blocks(pos[ii], quat[ii], pos[jj], quat[jj],
+                                edges.t, edges.q, edges.w_rot, edges.w_pos)
+    w = w * _robust_scale(r, w, edges, huber_delta, pos.shape[0])[:, None]
+    ok = edges.valid
+    return (torch.where(ok[:, None], r, 0.0),
+            torch.where(ok[:, None, None], Ji, 0.0),
+            torch.where(ok[:, None, None], Jj, 0.0),
+            torch.where(ok[:, None], w, 0.0))
+
+
+def _gradient_and_diag(r, Ji, Jj, w, i, j, K: int):
+    """g = Jᵀ W r (K,6) and the block diagonal of H (K,6,6), by scatter-adds
+    (in no fixed order on the card)."""
+    ii, jj = i.long(), j.long()
+    g = torch.zeros((K, 6), dtype=r.dtype, device=r.device)
+    g.index_add_(0, ii, torch.einsum("eri,er->ei", Ji, w * r))
+    g.index_add_(0, jj, torch.einsum("eri,er->ei", Jj, w * r))
+    D = torch.zeros((K, 6, 6), dtype=r.dtype, device=r.device)
+    D.index_add_(0, ii, torch.einsum("eri,er,erj->eij", Ji, w, Ji))
+    D.index_add_(0, jj, torch.einsum("eri,er,erj->eij", Jj, w, Jj))
+    return g, D
+
+
+def _hv(v, Ji, Jj, w, i, j, diag_w, K: int):
+    """Matrix-free (H + diag(diag_w)) @ v for v (K,6)."""
+    ii, jj = i.long(), j.long()
+    re = w * (torch.einsum("erc,ec->er", Ji, v[ii])
+              + torch.einsum("erc,ec->er", Jj, v[jj]))
+    out = torch.zeros((K, 6), dtype=v.dtype, device=v.device)
+    out.index_add_(0, ii, torch.einsum("erc,er->ec", Ji, re))
+    out.index_add_(0, jj, torch.einsum("erc,er->ec", Jj, re))
+    return out + diag_w[:, None] * v
+
+
+def _pcg(matvec, Minv, b, iters: int):
+    """Preconditioned CG on an SPD system, a fixed number of iterations (a
+    zero denominator gives a zero step, as in the reference)."""
+    x = torch.zeros_like(b)
+    r = b
+    z = Minv(r)
+    p = z
+    rz = torch.sum(r * z)
+    for _ in range(iters):
+        hp = matvec(p)
+        denom = torch.sum(p * hp)
+        alpha = rz / torch.where(denom == 0, 1.0, denom)
+        x = x + alpha * p
+        r = r - alpha * hp
+        z = Minv(r)
+        rz_new = torch.sum(r * z)
+        p = z + rz_new / torch.where(rz == 0, 1.0, rz) * p
+        rz = rz_new
+    return x
+
+
+def block_inverse(D):
+    """Batched inverse of the (K,6,6) preconditioner blocks with no host
+    read (`inv_ex`, its error check on the device): a singular block
+    becomes NaN, which the step's finite guard turns into a no-op, as the
+    reference's `jnp.linalg.inv` gives NaN."""
+    inv, info = torch.linalg.inv_ex(D)
+    return torch.where(info[:, None, None] == 0, inv, torch.nan)
 
 
 def optimize_cg(pos, quat, active, edges: EdgeSet, iters: int = 8,
                 cg_iters: int = 64, prior_w: float = 1e6,
                 damping: float = 1e-3, prior_slot=0, huber_delta: float = 0.0):
-    """The reference's matrix-free block-Jacobi PCG solve, which its mapper
-    takes above 1024 keyframes."""
-    raise NotImplementedError(f"pose_graph.optimize_cg: the sparse solve is "
-                              f"{PARALLEL_SLICE}")
+    """Sparse pose-graph Gauss-Newton: the problem of `optimize`, solved
+    matrix-free by block-Jacobi-preconditioned CG, `cg_iters` fixed
+    iterations per GN iteration.  O(E) memory, where the dense path needs
+    (6K)²; the reference's mapper takes it above 1024 keyframes."""
+    K = pos.shape[0]
+    active = _active_mask(active, K, pos.device)
+    diag_w = _diag_weights(active, K, prior_slot, prior_w, damping, pos.dtype)
+    eye = torch.eye(6, dtype=pos.dtype, device=pos.device)
+    for _ in range(iters):
+        r, Ji, Jj, w = _edge_system(pos, quat, edges, huber_delta)
+        g, D = _gradient_and_diag(r, Ji, Jj, w, edges.i, edges.j, K)
+        Dinv = block_inverse(D + eye * diag_w[:, None, None])
+        dx = -_pcg(lambda v: _hv(v, Ji, Jj, w, edges.i, edges.j, diag_w, K),
+                   lambda v: torch.einsum("kij,kj->ki", Dinv, v), g, cg_iters)
+        pos, quat = gn_update(pos, quat, dx, active)
+    return pos, quat
 
 
 def graph_cost(pos, quat, edges: EdgeSet):

@@ -14,6 +14,7 @@ import torch
 
 from lins_tpu_torch.config import SlamConfig
 from lins_tpu_torch.geom import so3
+from lins_tpu_torch.utils.tree import tree_where
 
 POS = slice(0, 3)
 VEL = slice(3, 6)
@@ -113,6 +114,55 @@ def initial_state(cfg: SlamConfig, time=0.0, rn=None, vn=None, qbn=None,
         acc_last=z3 if acc is None else _vec(acc, dtype, device),
         gyr_last=z3 if gyr is None else _vec(gyr, dtype, device),
     )
+
+
+def predict_step(s: FilterState, dt, acc, gyr, Q: torch.Tensor) -> FilterState:
+    """One IMU sample: midpoint state integration + covariance propagation
+    (StatePredictor::predict, KalmanFilter.hpp:125-186)."""
+    dtype, dev = s.rn.dtype, s.rn.device
+    un_acc_0 = so3.quat_rotate(s.qbn, s.acc_last - s.ba) + s.gn
+    un_gyr = 0.5 * (s.gyr_last + gyr) - s.bw
+    q_new = so3.quat_normalize(so3.quat_mul(s.qbn, so3.exp_axis(un_gyr * dt)))
+    un_acc_1 = so3.quat_rotate(q_new, acc - s.ba) + s.gn
+    un_acc = 0.5 * (un_acc_0 + un_acc_1)
+
+    rn = s.rn + dt * s.vn + 0.5 * dt * dt * un_acc
+    vn = s.vn + dt * un_acc
+
+    R_new = so3.quat_to_mat(q_new)
+    I3 = torch.eye(3, dtype=dtype, device=dev)
+    Ft = torch.zeros((DIM, DIM), dtype=dtype, device=dev)
+    Ft[POS, VEL] = I3
+    Ft[VEL, ATT] = -R_new @ so3.skew(acc - s.ba)
+    Ft[VEL, ACC] = -R_new
+    Ft[VEL, GRA] = I3
+    Ft[ATT, ATT] = -so3.skew(gyr - s.bw)
+    Ft[ATT, GYR] = -I3
+
+    Gt = torch.zeros((DIM, NOISE_DIM), dtype=dtype, device=dev)
+    Gt[VEL, 0:3] = -R_new
+    Gt[ATT, 3:6] = -I3
+    Gt[ACC, 6:9] = I3
+    Gt[GYR, 9:12] = I3
+    Gt = Gt * dt
+
+    I = torch.eye(DIM, dtype=dtype, device=dev)
+    F = I + Ft * dt + 0.5 * (Ft @ Ft) * dt * dt
+    P = F @ s.P @ F.T + Gt @ Q @ Gt.T
+    P = 0.5 * (P + P.T)
+    return s._replace(rn=rn, vn=vn, qbn=q_new, P=P, time=s.time + dt,
+                      acc_last=acc, gyr_last=gyr)
+
+
+def propagate_sequential(s: FilterState, dts, accs, gyrs, valid,
+                         cfg: SlamConfig) -> FilterState:
+    """The reference's own recursion: `predict_step` sample by sample, an
+    invalid sample a no-op (the parity form; the path runs `propagate`)."""
+    Q = process_noise(cfg, s.rn.dtype, s.rn.device)
+    for k in range(dts.shape[0]):
+        s = tree_where(valid[k], predict_step(s, dts[k], accs[k], gyrs[k], Q),
+                       s)
+    return s
 
 
 def _prefix_quat_product(q):

@@ -92,3 +92,16 @@ def preintegrate(pre: Preintegration, dts, accs, gyrs,
         new = midpoint_step(pre, dts[k], accs[k], gyrs[k])
         pre = tree_where(valid[k], new, pre)
     return pre
+
+
+def solve_gyro_bias(pre: Preintegration, q_meas: torch.Tensor) -> torch.Tensor:
+    """Gyro-bias least-squares correction from one preintegrated interval
+    against a measured relative rotation (solveGyroscopeBias,
+    StateEstimator.hpp:1422-1445)."""
+    A_blk = pre.jacobian[6:9, 12:15]
+    resid = so3.quat_mul(so3.quat_inv(pre.delta_q), q_meas)
+    b = 2.0 * resid[1:4]
+    A = A_blk.T @ A_blk
+    rhs = A_blk.T @ b
+    eye = torch.eye(3, dtype=A.dtype, device=A.device)
+    return torch.linalg.solve(A + 1e-12 * eye, rhs)

@@ -64,9 +64,15 @@ def empty_store(cfg: SlamConfig, corner_cap: int = 1024, surf_cap: int = 4096,
 def put_row(a: torch.Tensor, i: torch.Tensor, row) -> torch.Tensor:
     """a with row `i` (a 0-dim device index) replaced by `row`, with no
     host read of `i`.  A Python number becomes a fill, not a host->device
-    copy (which would wait for the stream)."""
+    copy (which would wait for the stream).  A row shorter than a's rows
+    fills their leading entries and keeps the rest, as the reference
+    package's `lax.dynamic_update_slice` does: a configuration whose
+    feature sets are narrower than the store's caps (`--feature-scale
+    0.1`, the dry run's small config) writes such clouds."""
     if isinstance(row, torch.Tensor):
         row = row.to(a.dtype)
+        if row.dim() and a.dim() > 1 and row.shape[0] < a.shape[1]:
+            row = torch.cat([row, take_row(a, i)[row.shape[0]:]])
     else:
         row = torch.full(a.shape[1:], row, dtype=a.dtype, device=a.device)
     return a.index_copy(0, i.reshape(1).to(torch.int64),

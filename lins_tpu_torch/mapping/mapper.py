@@ -36,8 +36,13 @@ Both local maps are ported: the recent window (`loop_closure_enabled`,
 reference's loopClosureEnableFlag=false mode, or `lc_map_mode="radius"`),
 which each mapping step re-selects around the warm-start pose and rebuilds
 when the selected set changes (computed and selected on the card as well).
-The sparse solve that the reference takes above 1024 keyframes and the
-sharded store are the parallel slice's and raise NotImplementedError.
+Above 1024 keyframe slots every solve is the sparse one
+(`pose_graph.optimize_cg`), as in the reference.  The sharded keyframe
+store (`shard_store_over`) raises NotImplementedError.
+
+`_mapping_chunk_impl` is the chunk driver as a function of the state (the
+batched replay of parallel/replay.py runs it per stream);
+`LinsMapper.process_chunk` is a call of it.
 """
 from __future__ import annotations
 
@@ -348,6 +353,47 @@ def _final_solve_impl(state: MapperState, cfg: SlamConfig, opt_iters: int,
     return tree_where(good & (state.store.count > 2), new, state)
 
 
+def _mapping_chunk_impl(state: MapperState, rns, qbns, ts, cxyz, cval, sxyz,
+                        sval, oxyz, oval, imu_rp, map_flags, loop_flags,
+                        cfg: SlamConfig, corner_cap: int, surf_cap: int,
+                        outlier_cap: int, n_window: int, gp: lmn.GridParams,
+                        submap_cap: int, cloud_cap: int, opt_iters: int,
+                        has_map: bool):
+    """The mapping cadence over a K-scan chunk of odometry outputs, as a
+    function of the state: a mapping step on each scan `map_flags` marks,
+    then a loop attempt on each `loop_flags` marks (host bools from
+    `plan_chunk`), then every scan's fused pose with the correction current
+    at that scan (process -> loop -> fuse, the streaming order).  Nothing is
+    read back to the host.
+
+    rns (K,3), qbns (K,4), ts (K,): the odometry's poses and scan times;
+    c/s/o xyz, val: the chunk's clouds; imu_rp (K,2).  `has_map`: whether a
+    keyframe was stored before the chunk.  Returns (new state, fused pos
+    (K,3), quat (K,4), the mapping steps [(i, pos, quat, metrics)], the
+    loop attempts [(i, info)], has_map after the chunk)."""
+    dt = state.bef_pos.dtype
+    pos, quat, steps, loops = [], [], [], []
+    for i in range(len(map_flags)):
+        rn, qbn = rns[i].to(dt), qbns[i].to(dt)
+        if map_flags[i]:
+            state, t_m, q_m, metrics = _mapping_step_impl(
+                state, rn, qbn, ts[i].to(dt), cxyz[i], cval[i], sxyz[i],
+                sval[i], oxyz[i], oval[i], imu_rp[i], cfg, corner_cap,
+                surf_cap, outlier_cap, n_window, gp, has_map)
+            has_map = True
+            steps.append((i, t_m, q_m, metrics))
+        if loop_flags[i]:
+            state, info = _loop_step_impl(state, ts[i].to(dt), cfg,
+                                          submap_cap, cloud_cap, opt_iters,
+                                          n_window, gp)
+            loops.append((i, info))
+        p, q = warm_start(state, rn, qbn)
+        pos.append(p)
+        quat.append(q)
+    return (state, torch.stack(pos), torch.stack(quat), steps, loops,
+            has_map)
+
+
 def mapper_state_from_numpy(d, device=None, dtype=torch.float32):
     """The reference package's MapperState as the port's tensors.
 
@@ -417,12 +463,6 @@ class LinsMapper:
                  outlier_cap=None, n_window=None, map_corner_cap=None,
                  map_surf_cap=None, submap_cap=None, cloud_cap=None,
                  dtype=None, device=None):
-        if (cfg.loop_closure_enabled and cfg.loop_attempts
-                and cfg.max_keyframes > 1024):
-            raise NotImplementedError(
-                f"LinsMapper: loop closure at max_keyframes="
-                f"{cfg.max_keyframes} needs the sparse pose-graph solve, "
-                f"{pg.PARALLEL_SLICE}")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = resolve_dtype(dtype)
@@ -449,8 +489,7 @@ class LinsMapper:
 
     def shard_store_over(self, mesh, axis: str = "seq"):
         raise NotImplementedError(
-            "LinsMapper.shard_store_over: the sharded store is "
-            f"{pg.PARALLEL_SLICE}")
+            f"LinsMapper.shard_store_over: {pg.PARALLEL_SLICE}")
 
     def warmup(self, cloud_dtype=None, chunk: int | None = None):
         """Kept for API parity with the reference package, whose warmup
@@ -539,25 +578,21 @@ class LinsMapper:
         `last_chunk_clouds`; imu_rp_dev: optional (K, 2) roll/pitch.
         """
         K = len(ts_host)
-        dt = self.dtype
         if imu_rp_dev is None:
-            imu_rp_dev = torch.full((K, 2), math.nan, dtype=dt,
+            imu_rp_dev = torch.full((K, 2), math.nan, dtype=self.dtype,
                                     device=self.device)
-        pos, quat = [], []
-        for i, t in enumerate(ts_host):
-            rn, qbn = rns[i].to(dt), qbns[i].to(dt)
-            if map_flags[i]:
-                t_m, q_m = self._step(
-                    rn, qbn, ts_dev[i].to(dt), clouds["cxyz"][i],
-                    clouds["cval"][i], clouds["sxyz"][i], clouds["sval"][i],
-                    clouds["oxyz"][i], clouds["oval"][i], imu_rp_dev[i])
-                self.trajectory.append((float(t), t_m, q_m))
-            if loop_flags[i]:
-                self._loop_step(ts_dev[i].to(dt))
-            p, q = warm_start(self.state, rn, qbn)
-            pos.append(p)
-            quat.append(q)
-        return torch.stack(pos), torch.stack(quat)
+        (self.state, pos, quat, steps, loops,
+         self._has_map) = _mapping_chunk_impl(
+            self.state, rns, qbns, ts_dev, clouds["cxyz"], clouds["cval"],
+            clouds["sxyz"], clouds["sval"], clouds["oxyz"], clouds["oval"],
+            imu_rp_dev, map_flags, loop_flags, self.cfg, *self.caps,
+            self.n_window, self.gp, self.submap_cap, self.cloud_cap, 8,
+            self._has_map)
+        for i, t_m, q_m, metrics in steps:
+            self.metrics.append(metrics)
+            self.trajectory.append((float(ts_host[i]), t_m, q_m))
+        self.loop_info.extend(info for _, info in loops)
+        return pos, quat
 
     def maybe_close_loop(self, time: float):
         """Attempt a loop closure at ~1 Hz (the loopClosureThread cadence,

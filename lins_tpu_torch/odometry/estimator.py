@@ -234,6 +234,24 @@ def chunk_rest_impl(labels_k, pre_k, filter_state, global_state, last_surf,
                               last_corner), len(labels_k))
 
 
+def odometry_chunk_impl(state, xyz_k, n_k, dts_k, accs_k, gyrs_k,
+                        imu_valid_k, cfg: SlamConfig):
+    """K consecutive RUNNING-state scans from `state` = (filter state,
+    global state, last surf, last corner).  With `cfg.use_pallas` the chunk
+    runs as pre (all K scans) -> one label launch over the (K, L, S) chunk
+    -> post + running step per scan; otherwise each scan runs the whole
+    front end in turn.  Returns (state, (rns, qbns, rel_rns, rel_qbns,
+    metrics, clouds)) stacked per scan."""
+    if cfg.use_pallas:
+        pre_k = scan_pre_vmap(xyz_k, n_k, cfg)
+        labels_k = label_components(pre_k["e_right"], pre_k["e_down"],
+                                    pre_k["eligible"])
+        return chunk_rest_impl(labels_k, pre_k, *state, dts_k, accs_k,
+                               gyrs_k, imu_valid_k, cfg)
+    return chunk_scan_step_impl(*state, xyz_k, n_k, dts_k, accs_k, gyrs_k,
+                                imu_valid_k, cfg)
+
+
 def second_scan_step(feats: ScanFeatures, last_surf, last_corner,
                      preint: pre.Preintegration, imu_acc, imu_gyr,
                      ba0, bw0, cfg: SlamConfig):
@@ -551,10 +569,8 @@ class LinsOdometry:
         ts: (K,) scan-end times; xyzs: (K, max_points, 3); n_points: (K,).
         imu: optional prebuilt (dts, accs, gyrs, valid) device blocks from
         `prefetch_chunks(..., with_imu=True)` — with them this method issues
-        no host->device transfer.
-        With `cfg.use_pallas` the chunk runs as pre (all K scans) -> one
-        label launch over the (K, L, S) chunk -> post + running step per
-        scan; otherwise each scan runs the whole front end in turn.
+        no host->device transfer.  The chunk runs through
+        `odometry_chunk_impl`.
         Appends K trajectory/metrics entries; returns the last global pose.
         """
         if self.status != STATUS_RUNNING:
@@ -567,18 +583,9 @@ class LinsOdometry:
         else:
             self.time = float(ts[-1])
         xyz_k, n_k = self._scan_tensors(xyzs, n_points)
-        state = (self.filter_state, self.global_state, self.last_surf,
-                 self.last_corner)
-        if self.cfg.use_pallas:
-            pre_k = scan_pre_vmap(xyz_k, n_k, self.cfg)
-            # one label launch over the whole (K, L, S) chunk
-            labels_k = label_components(pre_k["e_right"], pre_k["e_down"],
-                                        pre_k["eligible"])
-            state, outs = chunk_rest_impl(labels_k, pre_k, *state, *imu,
-                                          self.cfg)
-        else:
-            state, outs = chunk_scan_step_impl(*state, xyz_k, n_k, *imu,
-                                               self.cfg)
+        state, outs = odometry_chunk_impl(
+            (self.filter_state, self.global_state, self.last_surf,
+             self.last_corner), xyz_k, n_k, *imu, self.cfg)
         rns, qbns, rel_rns, rel_qbns, metrics, clouds = outs
         (self.filter_state, self.global_state, self.last_surf,
          self.last_corner) = state

@@ -13,7 +13,9 @@ Usage:
 
 It runs on the card (`--device cuda`, the default) and raises when there
 is none; `--device cpu` runs the kernels' plain versions on the CPU.  A
-run with `--resume` goes on after the checkpoint's last scan.
+run with `--resume` goes on after the checkpoint's last scan.  With
+`--multihost` the process enrolls in a torch.distributed group through the
+reference's variables and prints the reference runner's enrollment line.
 """
 from __future__ import annotations
 
@@ -121,8 +123,11 @@ def build_parser() -> argparse.ArgumentParser:
                     help="per-scan streaming mode (default: chunked replay "
                          "with every chunk staged on the device up front)")
     ap.add_argument("--multihost", action="store_true",
-                    help="enroll this process in a multi-host cluster (the "
-                         "port's parallel slice; raises until then)")
+                    help="enroll this process in a multi-process group "
+                         "through torch.distributed (JAX_COORDINATOR / "
+                         "JAX_NUM_PROCESSES / JAX_PROCESS_ID env vars; NCCL "
+                         "on the card, gloo on the CPU; see "
+                         "lins_tpu_torch.parallel.multihost)")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default: the card; raises when "
                          "there is none; 'cpu' runs the kernels' plain "
@@ -215,11 +220,19 @@ def run(args):
     from lins_tpu_torch.utils.lazy import to_numpy
     from lins_tpu_torch.utils.metrics import MetricsLog
 
-    if args.multihost:
-        raise NotImplementedError(
-            "--multihost: multi-host enrollment is the port's parallel "
-            "slice (torch.distributed)")
     device = resolve_device(args.device)
+    if args.multihost:
+        # enroll through torch.distributed with the reference's variables
+        # (JAX_COORDINATOR, JAX_NUM_PROCESSES, JAX_PROCESS_ID) and print
+        # the reference runner's line (run_slam.py:132-138)
+        from lins_tpu_torch.parallel import multihost
+
+        enrolled = multihost.initialize(device=device)
+        print(json.dumps(dict(
+            multihost=enrolled, process_index=multihost.process_index(),
+            process_count=multihost.process_count(),
+            global_devices=multihost.global_mesh([device]).size)),
+            flush=True)
     cfg, data = load_data(args, configure(args), device)
 
     os.makedirs(args.out, exist_ok=True)
@@ -352,7 +365,12 @@ def run(args):
 
 
 def main(argv=None):
-    summary = run(build_parser().parse_args(argv))[1]
+    from lins_tpu_torch.parallel import multihost
+
+    try:
+        summary = run(build_parser().parse_args(argv))[1]
+    finally:
+        multihost.shutdown()
     print(json.dumps(summary))
     return 0
 

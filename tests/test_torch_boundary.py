@@ -131,9 +131,32 @@ def test_config_files(tmp_path):
 
 
 def test_exact_feature_mode_waits():
-    """Only the "fast" feature mode is ported; "exact" says so."""
-    from lins_tpu_torch.frontend import features
+    """The "exact" feature mode no longer waits: one TINY scan goes through
+    the port's front end in that mode on the CPU and gives every feature
+    set, finite and within its cap, with the less-flat set made of voxel
+    centroids rather than raw points (tests/test_torch_exact.py holds the
+    mode to the reference package)."""
+    from lins_tpu_torch.datasets.synthetic import generate_sequence
+    from lins_tpu_torch.frontend.pipeline import process_cloud
 
-    cfg = tconfig.TINY.replace(feature_mode="exact")
-    with pytest.raises(NotImplementedError, match="exact"):
-        features.extract_features(None, None, None, cfg)
+    cfg = tconfig.TINY
+    data = generate_sequence(cfg, n_scans=1, device="cpu")
+    xyz = torch.as_tensor(data["scans_xyz"][0])
+    n = torch.tensor(int(data["scans_n"][0]), dtype=torch.int32)
+    feats = {m: process_cloud(xyz, n, cfg.replace(feature_mode=m))[2]
+             for m in ("fast", "exact")}
+    ex = feats["exact"]
+    for name in ex._fields:
+        got, cap = getattr(ex, name), getattr(feats["fast"], name)
+        assert got.xyz.shape == cap.xyz.shape
+        assert bool(torch.isfinite(got.xyz[got.valid]).all())
+    assert int(ex.sharp.valid.sum()) > 0 and int(ex.flat.valid.sum()) > 0
+    raw = xyz[:int(n)]
+
+    def raw_share(f):
+        lf = f.less_flat.xyz[f.less_flat.valid]
+        assert int(lf.shape[0]) > 0
+        return float((lf[:, None, :] == raw[None]).all(-1).any(-1)
+                     .float().mean())
+
+    assert raw_share(feats["fast"]) == 1.0 and raw_share(ex) < 1.0

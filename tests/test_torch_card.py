@@ -691,3 +691,72 @@ def test_radius_mapping_on_card_matches_cpu(cuda_device):
     sel = cpu.mapper.state.lmap.sel
     assert (sel >= 0).sum() >= 2
     assert torch.equal(card.mapper.state.lmap.sel.cpu(), sel)
+
+
+@pytest.mark.cuda
+def test_exact_mode_labels_on_card_match_cpu(cuda_device):
+    """The exact feature mode on the card: the greedy picking of each
+    segmented TINY scan equals the CPU float32 picking of the same scan,
+    and the whole front end's feature sets keep their counts."""
+    from lins_tpu_torch.datasets.synthetic import generate_sequence
+    from lins_tpu_torch.frontend import features as F
+    from lins_tpu_torch.frontend.pipeline import process_cloud
+
+    cfg = TINY.replace(feature_mode="exact")
+    data = generate_sequence(cfg, n_scans=4, kind="gentle", speed=1.5,
+                             device=cuda_device)
+    for k in range(4):
+        xyz = torch.as_tensor(np.asarray(data["scans_xyz"][k], np.float32))
+        n = torch.tensor(int(data["scans_n"][k]), dtype=torch.int32)
+        _, seg, feats = process_cloud(xyz.to(cuda_device),
+                                      n.to(cuda_device), cfg)
+        lab = F.extract_rings(seg, cfg)[0]
+        seg_c = type(seg)(*(x.cpu() for x in seg))
+        assert torch.equal(lab.cpu(), F.extract_rings(seg_c, cfg)[0])
+        assert int((lab == 2).sum()) > 0 and int((lab == -1).sum()) > 0
+        vox = F.voxel_downsample_ring(seg.xyz, seg.rel_time,
+                                      F.extract_rings(seg, cfg)[1],
+                                      cfg.surf_leaf_size)
+        vox_c = F.voxel_downsample_ring(seg_c.xyz.double(),
+                                        seg_c.rel_time.double(),
+                                        F.extract_rings(seg_c, cfg)[1],
+                                        cfg.surf_leaf_size)
+        assert torch.equal(vox[2].cpu(), vox_c[2])
+        np.testing.assert_allclose(vox[0].cpu().numpy(), vox_c[0].numpy(),
+                                   rtol=0, atol=1e-5)
+        assert int(feats.less_flat.valid.sum()) > 0
+
+
+@pytest.mark.cuda
+def test_optimize_cg_on_card_matches_cpu_float64(cuda_device):
+    """The sparse solve in float32 on the card against float64 on the CPU
+    on a drifted chain of 1200 slots with loop edges: within 1 mm."""
+    from lins_tpu_torch.graph import pose_graph as pg
+
+    rng = np.random.default_rng(0)
+    K, n = 1200, 300
+    gt = np.cumsum(rng.uniform(-1, 1, (n, 3)), axis=0)
+    pos = np.zeros((K, 3))
+    pos[:n] = gt + rng.normal(0, 0.02, (n, 3)).cumsum(axis=0)
+    quat = np.zeros((K, 4))
+    quat[:, 0] = 1.0
+    pairs = [(k, k + 1) for k in range(n - 1)] + [(0, n - 1), (10, 200)]
+    e = pg.empty_edges(len(pairs) + 8, torch.float64)
+    one = torch.tensor([1.0, 0, 0, 0], dtype=torch.float64)
+    for i, j in pairs:
+        e = pg.add_edge(e, torch.tensor(i), torch.tensor(j),
+                        torch.tensor(gt[j] - gt[i]), one, 1e4, 1e4)
+    want = pg.optimize_cg(torch.tensor(pos), torch.tensor(quat),
+                          torch.tensor(n), e, huber_delta=0.5)
+    ef = pg.EdgeSet(*(x.to(cuda_device, torch.float32)
+                      if x.is_floating_point() else x.to(cuda_device)
+                      for x in e))
+    got = pg.optimize_cg(torch.tensor(pos, dtype=torch.float32,
+                                      device=cuda_device),
+                         torch.tensor(quat, dtype=torch.float32,
+                                      device=cuda_device),
+                         torch.tensor(n, device=cuda_device), ef,
+                         huber_delta=0.5)
+    assert np.abs(want[0].numpy() - pos).max() > 0.01
+    np.testing.assert_allclose(got[0].cpu().double().numpy(),
+                               want[0].numpy(), rtol=0, atol=1e-3)

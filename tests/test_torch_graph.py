@@ -284,6 +284,33 @@ def _store_t(store):
     return tkf.KeyframeStore(*(_t(x) for x in store))
 
 
+def test_add_keyframe_short_clouds():
+    """The store's writer takes clouds narrower than its rows (a config
+    whose feature sets are narrower than the store's caps, as
+    `--feature-scale 0.1` gives): their leading rows are written and the
+    rest of the slot kept, as the reference's `dynamic_update_slice`
+    keeps it, also in a slot that ring eviction reuses."""
+    rng = np.random.default_rng(3)
+    cfg = VLP16.replace(max_keyframes=2)
+    js = jkf.empty_store(cfg, 8, 8, 8, F64)
+    ts = tkf.empty_store(TCFG.replace(max_keyframes=2), 8, 8, 8,
+                         torch.float64)
+    for k, w in enumerate((8, 5, 3)):       # the third push evicts slot 0
+        pos, quat = rng.normal(size=3), np.array([1.0, 0, 0, 0])
+        clouds = [rng.normal(size=(w, 3)), rng.random(w) < 0.7,
+                  rng.normal(size=(w, 3)), rng.random(w) < 0.7,
+                  rng.normal(size=(w, 3)), rng.random(w) < 0.7]
+        js = jkf.add_keyframe(js, jnp.asarray(pos), jnp.asarray(quat),
+                              0.1 * k, *(jnp.asarray(c) for c in clouds))
+        ts = tkf.add_keyframe(ts, _t(pos), _t(quat),
+                              torch.tensor(0.1 * k, dtype=torch.float64),
+                              *(_t(c) for c in clouds))
+    for name, a, b in zip(ts._fields, ts, js):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b),
+                                      err_msg=name)
+    assert bool(ts.corner_valid[0, 3:].any())   # kept from the first push
+
+
 @pytest.mark.parametrize("track", ["revisit", "recent"])
 def test_detect_loop(track):
     if track == "revisit":

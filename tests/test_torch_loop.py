@@ -250,12 +250,16 @@ if __name__ == "__main__":
     # The reference package's own numbers on chip_smoke.py's loop-closure
     # paths, on the CPU in float32 with its kernels off, as bench.py
     # configures it without a TPU:
-    #     PYTHONPATH=. python tests/test_torch_loop.py [H|V|HR|R ...]
+    #     PYTHONPATH=. python tests/test_torch_loop.py [H|V|HR|R|E|HS ...]
     # H: HDL-64, the revisiting circuit (107 scans, loop_time_gate 4 s);
     # V: bench.py's main cell with loop attempts, the gentle sequence;
     # HR: H over the radius-selected map (lc_map_mode="radius");
     # R: the radius map with loop closure off (run_slam.py
-    # --no-loop-closure), VLP-16, the first 6 + 2x32 gentle scans.
+    # --no-loop-closure), VLP-16, the first 6 + 2x32 gentle scans;
+    # E: the window map without loop attempts in the "exact" feature mode,
+    # VLP-16, the first 6 + 2x32 gentle scans;
+    # HS: H with max_keyframes=2048, where every solve is the sparse one
+    # (optimize_cg).
     import json
     import sys
     import time
@@ -281,6 +285,10 @@ if __name__ == "__main__":
     paths["R"] = (VLP16.replace(max_points=28800,
                                 loop_closure_enabled=False),
                   dict(n_scans=70, kind="gentle", speed=1.5))
+    paths["E"] = (VLP16.replace(max_points=28800, loop_attempts=False,
+                                feature_mode="exact"),
+                  dict(n_scans=70, kind="gentle", speed=1.5))
+    paths["HS"] = (paths["H"][0].replace(max_keyframes=2048), paths["H"][1])
     for name in sys.argv[1:] or ["H", "V", "HR", "R"]:
         cfg, seq_kw = paths[name]
         t0 = time.perf_counter()

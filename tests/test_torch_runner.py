@@ -8,7 +8,9 @@ against the reference package's `run_slam.py`:
     (run_slam.py:268-321), and its trajectory.tum is the run's
     `LinsSlam.trajectory_arrays()`;
   * streaming with checkpoints, and a resume from one;
-  * `--multihost` raises, and without a card the default device raises."""
+  * `--multihost` without a coordinator prints the reference runner's
+    enrollment line (single process) and runs; without a card the default
+    device raises."""
 import ast
 import json
 import pathlib
@@ -158,9 +160,19 @@ def test_checkpoints_and_resume(tmp_path, capsys):
     np.testing.assert_array_equal(t, t_first[-4:])
 
 
-def test_multihost_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="parallel slice"):
-        run_slam.main(BASE + ["--multihost", "--out", str(tmp_path)])
+def test_multihost_raises(tmp_path, capsys, monkeypatch):
+    """No longer raises: without JAX_COORDINATOR the runner stays a single
+    process, prints the enrollment line with the reference runner's keys
+    (run_slam.py:132-138), and runs.  (Two enrolled processes:
+    tests/test_torch_multihost.py.)"""
+    for var in ("JAX_COORDINATOR", "JAX_NUM_PROCESSES", "JAX_PROCESS_ID"):
+        monkeypatch.delenv(var, raising=False)
+    assert run_slam.main(BASE + ["--multihost", "--map-format", "none",
+                                 "--out", str(tmp_path)]) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert json.loads(lines[0]) == dict(multihost=False, process_index=0,
+                                        process_count=1, global_devices=1)
+    assert json.loads(lines[-1])["scans"] == 7
 
 
 def test_needs_a_card_by_default(tmp_path):
