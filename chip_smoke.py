@@ -94,6 +94,16 @@ Phases, in order; any failure exits non-zero:
                  optimize_cg and no dense optimize runs; path H's gates
                  against the JAX package's ATE at 2048 slots; the store's
                  bytes
+     path HS-shard  path H-sparse with slam.mapper.shard_store_over(a mesh
+                 of 4 parts of the card): path H-sparse's gates, the same
+                 loops, keyframes and edges, every fused pose within 1e-5 m
+                 and 1e-6 of |dot| of path H-sparse's, no host sync in the
+                 warm chunk, each cloud field in 4 parts of 512 rows; then
+                 the seams at full width: a 2048-slot HDL-64 store filled
+                 past the ring's wrap, sharded over 4 parts of the card,
+                 whose assemble_local_map, rebuild_window and loop_clouds
+                 across each seam and the wrap equal the unsharded ones
+                 bit for bit
      multi-stream  parallel/replay.make_sharded_slam_replay on a one-card
                  mesh: 4 distinct VLP-16 streams (the gentle trajectory at
                  four speeds) in path V's config, 6 streamed + 32 scans
@@ -108,7 +118,8 @@ Phases, in order; any failure exits non-zero:
                  the exact mode; one sparse solve on path H-sparse's final
                  state, then against a CPU float64 copy (1 mm, 0.001 rad);
                  then K3 against its plain version on the loop polish's
-                 real gathers there
+                 real gathers there; one mapping step and one loop attempt
+                 on the final states of paths H-sparse and HS-shard
   7. CPU checks  the first 8 scans again on the CPU in float64: odometry
                  positions within 1 cm; with mapping (the window path and
                  path H), positions within 5 cm and per-step matches within
@@ -126,8 +137,10 @@ Phases, in order; any failure exits non-zero:
                  picks from the raw points counted); the edge-sharded dense
                  and sparse solves in an NCCL world of one (TCP on
                  127.0.0.1) within 1e-5 m of the one-device solves on path
-                 H's final graph; parallel.dryrun.entry() and
-                 dryrun_multichip(the card count)
+                 H's final graph, and path H's final store sharded over
+                 that world (its reads through all_reduce): the window
+                 assembly equal bit for bit; parallel.dryrun.entry() and
+                 dryrun_multichip(the card count), its four parts run
   8. runner      `python -m lins_tpu_torch.run_slam --synthetic gentle
                  --scans 40 --no-loop-closure --checkpoint-every 20
                  --map-format ply` into chiprun_out/runner, then the same
@@ -189,6 +202,18 @@ EXACT_E2E_MAX_SHARE = 0.01
 # sparse one (optimize_cg), and the JAX package's fused ATE on it, made the
 # same way (PYTHONPATH=. python tests/test_torch_loop.py HS)
 REF_FUSED_ATE_HS_M = 0.04789136468507596
+# path HS-shard: path H-sparse with its keyframe store split along the
+# keyframe axis over 4 parts of the one card (a 4-card mesh's code path,
+# apart from the peer copies), against path H-sparse in the same call at
+# the reference's own tolerances (tests/test_parallel.py:281-285)
+STORE_SHARDS = 4
+SHARD_POS_TOL_M = 1e-5
+SHARD_QUAT_TOL = 1e-6
+# the seam check: a 2048-slot store at HDL-64 caps filled directly as if
+# 2100 keyframes had been added, so its windows cross the three seams of 4
+# shards of 512 slots and the ring's wrap; the windows end at these ids
+SEAM_COUNT = 2100
+SEAM_CENTERS = (530, 1040, 1560, 2060, 2099)
 # the edge-sharded solves on a one-card NCCL world against the one-device
 # solves on the same card
 DIST_TOL_M = 1e-5
@@ -1553,9 +1578,11 @@ def replay(slam, data, n_scans=None):
     warm chunk) runs in PyTorch's sync debug mode, chunks 1.. are timed as
     bench.py times them (bench_slam with mapping, the odometry loop
     without).  The kernel counts are set to 0 just before the run and read
-    just after; the peak memory is the run's.  Returns a dict: wall s,
-    chunk_s, rate (scans/s over the timed chunks), syncs and sites (chunk
-    0's host syncs by call site), counts, peak_bytes."""
+    just after; the peak memory is the run's, and counts what earlier runs
+    still hold (held_bytes, allocated when the run starts).  Returns a
+    dict: wall s, chunk_s, rate (scans/s over the timed chunks), syncs and
+    sites (chunk 0's host syncs by call site), counts, peak_bytes,
+    held_bytes."""
     import torch
 
     inner = slam.run_chunk
@@ -1579,6 +1606,7 @@ def replay(slam, data, n_scans=None):
     slam.run_chunk = run_chunk
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
     _reset_counts()
     t0 = time.perf_counter()
     try:
@@ -1592,7 +1620,8 @@ def replay(slam, data, n_scans=None):
     return dict(wall=wall, chunk_s=chunk_s,
                 rate=len(chunk_s) * K_CHUNK / sum(chunk_s),
                 syncs=sum(sites.values()), sites=sites, counts=counts,
-                peak_bytes=torch.cuda.max_memory_allocated())
+                peak_bytes=torch.cuda.max_memory_allocated(),
+                held_bytes=held)
 
 
 def log_run(what, slam, r):
@@ -1605,7 +1634,9 @@ def log_run(what, slam, r):
     log(f"  host syncs in the warm chunk: {r['syncs']}"
         + "".join(f"; {n} at {site}"
                   for site, n in r["sites"].most_common(5)))
-    log(f"  peak device memory of the run: {r['peak_bytes'] / 2**20:.1f} MiB")
+    log(f"  peak device memory of the run: {r['peak_bytes'] / 2**20:.1f} "
+        f"MiB, {(r['peak_bytes'] - r['held_bytes']) / 2**20:.1f} MiB above "
+        f"the {r['held_bytes'] / 2**20:.1f} MiB held when it started")
 
 
 def _mapping_log(slam):
@@ -1819,14 +1850,29 @@ def phase_path_r(cfg, data, odo_ps):
                 changes=changes)
 
 
-def phase_path_h(cfg, data, what="path H", ref_ate=REF_FUSED_ATE_H_M):
+def store_mesh(n):
+    """A mesh of n parts of the one card."""
+    import torch
+
+    from lins_tpu_torch.parallel.multihost import Mesh
+
+    return Mesh([torch.device("cuda", 0)] * n)
+
+
+def phase_path_h(cfg, data, what="path H", ref_ate=REF_FUSED_ATE_H_M,
+                 shards=0):
+    """Path H's run and gates; with `shards` the mapper's keyframe store is
+    split over that many parts of the card before the run."""
     from lins_tpu_torch.slam import LinsSlam
     from lins_tpu_torch.utils.trajectory import ate
 
     log(f"== 5. {what}: HDL-64 full SLAM on the revisiting circuit"
         + (", the radius-selected map" if cfg.lc_map_mode == "radius"
-           else ""))
+           else "")
+        + (f", the store over {shards} parts of the card" if shards else ""))
     slam = LinsSlam(cfg, enable_mapping=True)
+    if shards:
+        slam.mapper.shard_store_over(store_mesh(shards))
     with count_loop_launches() as in_loops:
         r = replay(slam, data)
     log_run("HDL-64 SLAM with loop closure", slam, r)
@@ -1865,8 +1911,9 @@ def phase_path_h(cfg, data, what="path H", ref_ate=REF_FUSED_ATE_H_M):
     check(err <= lim,
           f"fused ATE {err:.4f} m <= the JAX package's {ref_ate:.4f}"
           f" m + {ATE_MARGIN_H_M} m ({len(ps)} scans)")
-    return dict(r, slam=slam, ate=err, ps=ps, metrics=metrics,
-                n_loops=n_loops, n_kf=n_kf, in_loops=in_loops)
+    return dict(r, slam=slam, ate=err, ps=ps, qs=qs, metrics=metrics,
+                n_loops=n_loops, n_kf=n_kf, n_edges=n_edges,
+                in_loops=in_loops)
 
 
 def loop_profiles(slam):
@@ -1898,6 +1945,31 @@ def loop_profiles(slam):
     log_profile(f"one pose-graph solve (8 iterations, {K} slots, "
                 f"{int(store.count)} keyframes)", solve)
     return prof, solve, attempt, solved
+
+
+def shard_profiles(slams):
+    """One mapping step and one loop-closure attempt on the final state of
+    each (name, slam), under the profiler (nothing is written back):
+    the launches and busy time a sharded store adds."""
+    import torch
+
+    from lins_tpu_torch.mapping.mapper import (_loop_step_impl,
+                                               _mapping_step_impl)
+
+    out = {}
+    for name, slam in slams:
+        m, args = _mapping_inputs(slam)
+        st = m.state
+        step, _ = profile_call(lambda: _mapping_step_impl(
+            st, *args, m.cfg, *m.caps, m.n_window, m.gp, True))
+        log_profile(f"{name}: one mapping step", step)
+        t = torch.full((), float(slam.trajectory[-1][0]), dtype=m.dtype,
+                       device=m.device)
+        attempt, _ = profile_call(lambda: _loop_step_impl(
+            st, t, m.cfg, m.submap_cap, m.cloud_cap, 8, m.n_window, m.gp))
+        log_profile(f"{name}: one loop-closure attempt", attempt)
+        out[name] = dict(step=step, attempt=attempt)
+    return out
 
 
 def phase_profiles(cfg, data, map_slam, h_slam):
@@ -2349,15 +2421,19 @@ def count_solves():
 
 
 def _store_bytes(store):
-    return sum(x.numel() * x.element_size() for x in store
+    """The store's bytes on the card, a sharded field's parts included."""
+    return sum(x.numel() * x.element_size()
+               for f in store for x in getattr(f, "parts", [f])
                if hasattr(x, "numel"))
 
 
-def phase_path_hs(cfg, data):
+def phase_path_hs(cfg, data, shards=0):
     """Path H with 2048 keyframe slots: every loop attempt's solve (computed
     and selected on the card) and final_solve go through optimize_cg."""
     with count_solves() as solves:
-        r = phase_path_h(cfg, data, "path H-sparse", REF_FUSED_ATE_HS_M)
+        r = phase_path_h(cfg, data,
+                         "path HS-shard" if shards else "path H-sparse",
+                         REF_FUSED_ATE_HS_M, shards)
     store = r["slam"].mapper.state.store
     K = store.capacity
     nbytes = _store_bytes(store)
@@ -2369,6 +2445,136 @@ def phase_path_hs(cfg, data):
           f"{solves['optimize_cg']} sparse solves (optimize_cg) and no "
           f"dense one above 1024 slots")
     return dict(r, store_bytes=nbytes, solves=dict(solves))
+
+
+def phase_path_hs_shard(cfg, data, hs):
+    """Path H-sparse with its keyframe store split over STORE_SHARDS parts
+    of the card: path H-sparse's gates, and against path H-sparse's run in
+    this call the same loops, keyframes and edges and every fused pose
+    within SHARD_POS_TOL_M; no host sync in the warm chunk; each cloud
+    field in STORE_SHARDS parts of K / STORE_SHARDS rows."""
+    from lins_tpu_torch.parallel.shard_map_store import (SHARDED_FIELDS,
+                                                         ShardedRows)
+
+    r = phase_path_hs(cfg, data, STORE_SHARDS)
+    store = r["slam"].mapper.state.store
+    R = store.capacity // STORE_SHARDS
+    fields = [getattr(store, f) for f in SHARDED_FIELDS]
+    shard_mib = sum(a.parts[0].numel() * a.parts[0].element_size()
+                    for a in fields) / 2**20
+    check(all(isinstance(a, ShardedRows)
+              and [p.shape[0] for p in a.parts] == [R] * STORE_SHARDS
+              for a in fields),
+          f"each cloud field in {STORE_SHARDS} parts of {R} rows, "
+          f"{shard_mib:.1f} MiB a shard")
+    got = (r["n_loops"], r["n_kf"], r["n_edges"])
+    want = (hs["n_loops"], hs["n_kf"], hs["n_edges"])
+    check(got == want, f"loops, keyframes, edges {got} = path H-sparse's "
+          f"{want}")
+    dp = float(np.abs(r["ps"] - hs["ps"]).max())
+    dq = float(np.abs(np.sum(r["qs"] * hs["qs"], axis=1)).min())
+    n_equal = int(np.all(r["ps"] == hs["ps"], axis=1).sum())
+    check(r["ps"].shape == hs["ps"].shape and dp <= SHARD_POS_TOL_M
+          and dq >= 1 - SHARD_QUAT_TOL,
+          f"every fused pose within {dp:.3e} m <= {SHARD_POS_TOL_M} m of "
+          f"path H-sparse's, quaternion |dot| >= {dq:.9f} (>= 1 - "
+          f"{SHARD_QUAT_TOL}); {n_equal} of {len(r['ps'])} positions equal "
+          f"bit for bit")
+    check(r["syncs"] == 0, f"{r['syncs']} host syncs in the warm chunk")
+    log(f"  {r['rate']:.3f} scans/s against path H-sparse's "
+        f"{hs['rate']:.3f} ({r['rate'] / hs['rate']:.3f}x); peak above the "
+        f"run's start {(r['peak_bytes'] - r['held_bytes']) / 2**20:.1f} MiB "
+        f"against {(hs['peak_bytes'] - hs['held_bytes']) / 2**20:.1f}")
+    return dict(r, max_pose_diff=dp, min_quat_dot=dq, n_equal=n_equal,
+                shard_mib=shard_mib)
+
+
+def _seam_store(store, count, seed):
+    """`store` filled directly on its device with seeded rows as if `count`
+    keyframes had been added: slot s holds the newest id below `count`
+    that is s modulo K, poses in a 40 m box, clouds in a 20 m box with 90%
+    of the points valid."""
+    import torch
+
+    K, dev = store.capacity, store.count.device
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=g, device=dev,
+                          dtype=store.pos.dtype)
+
+    slots = torch.arange(K, device=dev)
+    ids = slots + K * torch.div(count - 1 - slots, K, rounding_mode="floor")
+    q = torch.randn((K, 4), generator=g, device=dev, dtype=store.pos.dtype)
+    clouds = {}
+    for f in ("corner", "surf", "outlier"):
+        shape = tuple(getattr(store, f).shape)
+        clouds[f] = (rand(*shape) - 0.5) * 20.0
+        clouds[f + "_valid"] = rand(*shape[:2]) < 0.9
+    return store._replace(
+        pos=(rand(K, 3) - 0.5) * 40.0,
+        quat=q / torch.linalg.vector_norm(q, dim=1, keepdim=True),
+        time=0.1 * ids.to(store.pos.dtype), kf_id=ids.to(torch.int32),
+        count=torch.tensor(count, dtype=torch.int32, device=dev), **clouds)
+
+
+def _tree_equal(a, b):
+    """Whether every tensor of two containers is equal bit for bit."""
+    import torch
+
+    from lins_tpu_torch.utils.tree import tree_map
+
+    xs, ys = [], []
+    tree_map(xs.append, a)
+    tree_map(ys.append, b)
+    return len(xs) == len(ys) > 0 and all(
+        x.dtype == y.dtype and bool(torch.equal(x, y)) for x, y in zip(xs, ys))
+
+
+def phase_store_seams(cfg):
+    """The sharded store's gathers at full width across its seams: a
+    2048-slot store at path H-sparse's caps, filled past the ring's wrap
+    (SEAM_COUNT), sharded over STORE_SHARDS parts of the card; for windows
+    ending at each of SEAM_CENTERS, `assemble_local_map`, `rebuild_window`
+    and `loop_clouds` equal the unsharded ones bit for bit."""
+    import torch
+
+    from lins_tpu_torch.graph import loop_closure as lc
+    from lins_tpu_torch.mapping import keyframes as kf
+    from lins_tpu_torch.mapping import local_map as lmn
+    from lins_tpu_torch.mapping.mapper import LinsMapper
+    from lins_tpu_torch.parallel.shard_map_store import shard_store
+
+    log(f"== 5. the sharded store's seams at full width ({STORE_SHARDS} "
+        f"parts of the card)")
+    m = LinsMapper(cfg)
+    store = _seam_store(m.state.store, SEAM_COUNT, 7)
+    sharded = shard_store(store, store_mesh(STORE_SHARDS))
+    dev, W, K = m.device, m.n_window, store.capacity
+    t_cur = torch.tensor(0.1 * SEAM_COUNT + 100.0, device=dev)
+    n_ok = 0
+    t0 = time.perf_counter()
+    for center in SEAM_CENTERS:
+        c = torch.tensor(center, dtype=torch.int32, device=dev)
+        ids = c - (W - 1) + torch.arange(W, dtype=torch.int32, device=dev)
+        ok = ids >= SEAM_COUNT - K
+        wslots = torch.remainder(ids, W).to(torch.int32)
+        idx = c - 18
+        for name, fn in (
+                ("assemble_local_map", lambda st: kf.assemble_local_map(
+                    st, c, W, with_outlier=True)),
+                ("rebuild_window", lambda st: lmn.rebuild_window(
+                    m.state.lmap, st, ids, ok, wslots, m.gp)),
+                ("loop_clouds", lambda st: lc.loop_clouds(
+                    st, idx, c, t_cur, cfg, m.submap_cap, m.cloud_cap))):
+            same = _tree_equal(fn(sharded), fn(store))
+            check(same, f"{name}, window ending at id {center} (slots "
+                  f"{int(kf.slot_of(store, ids[0]))}..{center % K}): "
+                  f"sharded = unsharded bit for bit")
+            n_ok += same
+    torch.cuda.synchronize()
+    log(f"  {n_ok} gathers equal in {time.perf_counter() - t0:.2f} s")
+    return n_ok
 
 
 def _final_graph(slam):
@@ -2430,11 +2636,17 @@ def _free_port():
 def phase_distributed(slam):
     """The edge-sharded solves in an NCCL world of one process (TCP on
     127.0.0.1) over a one-card mesh, on path H's final graph, against the
-    one-device solves on the same card; the group is destroyed after."""
-    from lins_tpu_torch.graph import pose_graph as pg
-    from lins_tpu_torch.parallel import dist_graph, multihost
+    one-device solves on the same card, and path H's final store sharded
+    over that world against the unsharded store; the group is destroyed
+    after."""
+    import torch
 
-    log("== 7. distributed solves: an NCCL world of one")
+    from lins_tpu_torch.graph import pose_graph as pg
+    from lins_tpu_torch.mapping import keyframes as kf
+    from lins_tpu_torch.parallel import dist_graph, multihost
+    from lins_tpu_torch.parallel.shard_map_store import shard_store
+
+    log("== 7. distributed solves and store reads: an NCCL world of one")
     check(multihost.initialize(f"127.0.0.1:{_free_port()}", 1, 0,
                                device="cuda"),
           "enrolled through torch.distributed (NCCL)")
@@ -2462,6 +2674,17 @@ def phase_distributed(slam):
                   f"solve: {dp:.2e} m <= {DIST_TOL_M} m "
                   f"({time.perf_counter() - t0:.2f} s)")
             out[name] = dp
+        # path H's final store sharded over the NCCL world: every read of a
+        # cloud row goes through the all_reduce of the owner-masked rows
+        st = slam.mapper.state.store
+        c = torch.clamp(st.count - 1, min=0)
+        whole = kf.assemble_local_map(st, c, slam.mapper.n_window)
+        got = kf.assemble_local_map(shard_store(st, mesh), c,
+                                    slam.mapper.n_window)
+        check(_tree_equal(got, whole) and int(whole[3].sum()) > 0,
+              f"the window assembly ({int(whole[3].sum())} surf points) "
+              f"from path H's store sharded over the NCCL world equals the "
+              f"unsharded one bit for bit")
     finally:
         multihost.shutdown()
     return out
@@ -2512,6 +2735,7 @@ def phase_multi_stream(cfg):
     step, put = rp.make_sharded_slam_replay(cfg, rp.make_mesh(1))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
     _reset_counts()
     t0 = time.perf_counter()
     with count_host_syncs() as sites:
@@ -2556,6 +2780,7 @@ def phase_multi_stream(cfg):
     return dict(rate=B * K_CHUNK / batch_s,
                 single_rate=K_CHUNK * B / sum(single_s), chunk_s=[batch_s],
                 ate=max(errs), syncs=syncs, counts=counts, peak_bytes=peak,
+                held_bytes=held,
                 max_diff=max(diffs), bit_equal=equal)
 
 
@@ -2572,7 +2797,8 @@ def phase_dryrun():
           f"{float(res):.4f}")
     n = torch.cuda.device_count()
     report = dryrun.dryrun_multichip(n)
-    check(report["shards"] == n and len(report["ran"]) == 3,
+    check(report["shards"] == n and len(report["ran"]) == 4
+          and not report["skipped"],
           f"dryrun_multichip({n}): {report['ran']}; skipped "
           f"{report['skipped']}")
 
@@ -2657,9 +2883,11 @@ def main():
     phr = phase_path_h(cfg_hr, data_h, "path H-radius", REF_FUSED_ATE_HR_M)
     pe = phase_path_e(cfg_e, data, mp["rate"])
     phs = phase_path_hs(cfg_hs, data_h)
+    phss = phase_path_hs_shard(cfg_hs, data_h, phs)
+    n_seams = phase_store_seams(cfg_hs)
     pms = phase_multi_stream(cfg_v)
     runs = dict(odometry=odo, window=mp, V=pv, H=ph, R=pr, HR=phr, E=pe,
-                HS=phs, MS=pms)
+                HS=phs, HSS=phss, MS=pms)
     # each kernel's launches: the sum of its counts over the main-path runs,
     # each read just after its own run
     k1["launches"] = sum(r["counts"]["label"] for r in runs.values())
@@ -2697,6 +2925,8 @@ def main():
         data["scans_n"][k]))
     log_profile("one RUNNING add_scan in the exact mode", exact_scan)
     sparse, sparse_dp = phase_sparse_solve(phs["slam"])
+    shard_prof = shard_profiles((("path H-sparse", phs["slam"]),
+                                 ("path HS-shard", phss["slam"])))
     k3["max_abs_err"] = max(k3["max_abs_err"],
                             phase_k3_loop(ph["slam"], cfg_h.s2m_cand))
     diff = phase_cpu_check(cfg, data, odo["ps"])
@@ -2719,7 +2949,9 @@ def main():
     for name, r in runs.items():
         log(f"    {name}: {r['rate']:.3f} scans/s, ATE {r['ate']:.4f} m, "
             f"host syncs in the warm chunk {r['syncs']}, peak "
-            f"{r['peak_bytes'] / 2**20:.1f} MiB")
+            f"{r['peak_bytes'] / 2**20:.1f} MiB "
+            f"({(r['peak_bytes'] - r['held_bytes']) / 2**20:.1f} above its "
+            f"start)")
     log(f"    card-vs-CPU: odometry {diff:.6f} m; window {mdiff:.6f} m, "
         f"matches {mrel:.4f}; H {hdiff:.6f} m, matches {hrel:.4f}; H's "
         f"final solve {sdiff:.2e} m; R {rdiff:.6f} m, matches {rrel:.4f}")
@@ -2737,6 +2969,16 @@ def main():
         f"{phs['solves']}; one sparse solve {sparse['launches']} launches, "
         f"busy {sparse['busy_ms']:.3f} ms, idle share {_idle(sparse):.4f}; "
         f"card vs CPU {sparse_dp:.2e} m")
+    hs_p, hss_p = shard_prof["path H-sparse"], shard_prof["path HS-shard"]
+    log(f"    HS-shard: {phss['rate']:.3f} scans/s against H-sparse's "
+        f"{phs['rate']:.3f} ({phss['rate'] / phs['rate']:.3f}x), poses "
+        f"within {phss['max_pose_diff']:.3e} m ({phss['n_equal']} of "
+        f"{len(phss['ps'])} equal), store {phss['store_bytes'] / 2**20:.1f}"
+        f" MiB, {phss['shard_mib']:.1f} MiB a shard; launches of a mapping "
+        f"step "
+        f"{hss_p['step']['launches']} (unsharded {hs_p['step']['launches']})"
+        f", of a loop attempt {hss_p['attempt']['launches']} (unsharded "
+        f"{hs_p['attempt']['launches']}); {n_seams} seam gathers equal")
     log(f"    distributed solves vs one device: dense {dist['dense']:.2e} m, "
         f"sparse {dist['sparse']:.2e} m")
     log(f"    multi-stream: {pms['rate']:.3f} scans/s batched against "

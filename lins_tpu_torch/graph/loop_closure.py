@@ -22,7 +22,7 @@ import torch
 from lins_tpu_torch.config import SlamConfig
 from lins_tpu_torch.geom import so3
 from lins_tpu_torch.mapping import keyframes as kf
-from lins_tpu_torch.mapping.keyframes import take_row
+from lins_tpu_torch.mapping.keyframes import take_row, take_rows
 from lins_tpu_torch.mapping.scan2map import scan_to_map_grids
 from lins_tpu_torch.ops.grid_nn import build_grid
 from lins_tpu_torch.ops.lin3 import eigh_sym3x3
@@ -169,11 +169,13 @@ def loop_clouds(store: kf.KeyframeStore, idx, cur, cur_time,
     ok_w = ok_win & (cur_time - store.time[win_c] > cfg.loop_time_gate)
     p_w, q_w = store.pos[win_c][:, None, :], store.quat[win_c][:, None, :]
     keep = ok_w[:, None]
-    sw = so3.quat_rotate(q_w, store.surf[win_c]) + p_w
-    cw = so3.quat_rotate(q_w, store.corner[win_c]) + p_w
+    # the clouds may be sharded over a mesh: read through take_rows
+    sw = so3.quat_rotate(q_w, take_rows(store.surf, win_c)) + p_w
+    cw = so3.quat_rotate(q_w, take_rows(store.corner, win_c)) + p_w
     sub_xyz = torch.cat([sw.reshape(-1, 3), cw.reshape(-1, 3)])
-    sub_ok = torch.cat([(store.surf_valid[win_c] & keep).reshape(-1),
-                        (store.corner_valid[win_c] & keep).reshape(-1)])
+    sub_ok = torch.cat([
+        (take_rows(store.surf_valid, win_c) & keep).reshape(-1),
+        (take_rows(store.corner_valid, win_c) & keep).reshape(-1)])
     submap, submap_ok = voxel_downsample(sub_xyz, sub_ok, cfg.map_surf_leaf,
                                          submap_cap)
 

@@ -34,9 +34,6 @@ import torch
 from lins_tpu_torch.geom import so3
 from lins_tpu_torch.mapping.keyframes import put_row
 
-PARALLEL_SLICE = ("the sharded keyframe store, the rest of the port's "
-                  "parallel slice")
-
 
 class EdgeSet(NamedTuple):
     """Fixed-capacity between-factor set (odometry + loop edges)."""

@@ -25,7 +25,7 @@ import torch
 from lins_tpu_torch.config import SlamConfig
 from lins_tpu_torch.geom import so3
 from lins_tpu_torch.mapping import keyframes as kf
-from lins_tpu_torch.mapping.keyframes import put_row, take_row
+from lins_tpu_torch.mapping.keyframes import put_row, take_row, take_rows
 from lins_tpu_torch.ops.grid_nn import HashGrid
 from lins_tpu_torch.ops.voxel_map import (VoxDelta, VoxelMap, apply_delta,
                                           build_voxel_map, empty_voxel_map,
@@ -180,12 +180,15 @@ def rebuild_window(lm: LocalMapState, store: kf.KeyframeStore,
     kslots = kf.slot_of(store, torch.clamp(ids, min=0)).to(torch.int64)
     p, q = store.pos[kslots], store.quat[kslots]
     keep = ok[:, None]
-    cw, cv = _to_world(store.corner[kslots], store.corner_valid[kslots], p,
-                       q, keep)
-    sw, sv = _to_world(store.surf[kslots], store.surf_valid[kslots], p, q,
-                       keep)
-    ow, ov = _to_world(store.outlier[kslots], store.outlier_valid[kslots], p,
-                       q, keep)
+
+    def world(cloud, valid):
+        # the clouds may be sharded over a mesh: read through take_rows
+        return _to_world(take_rows(cloud, kslots), take_rows(valid, kslots),
+                         p, q, keep)
+
+    cw, cv = world(store.corner, store.corner_valid)
+    sw, sv = world(store.surf, store.surf_valid)
+    ow, ov = world(store.outlier, store.outlier_valid)
     cw = cw.to(dtype)
     s_all = torch.cat([sw, ow], dim=1).to(dtype)
     v_all = torch.cat([sv, ov], dim=1)

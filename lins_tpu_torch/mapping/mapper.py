@@ -37,8 +37,9 @@ reference's loopClosureEnableFlag=false mode, or `lc_map_mode="radius"`),
 which each mapping step re-selects around the warm-start pose and rebuilds
 when the selected set changes (computed and selected on the card as well).
 Above 1024 keyframe slots every solve is the sparse one
-(`pose_graph.optimize_cg`), as in the reference.  The sharded keyframe
-store (`shard_store_over`) raises NotImplementedError.
+(`pose_graph.optimize_cg`), as in the reference.  `shard_store_over`
+splits the keyframe store's clouds along the keyframe axis over a mesh
+(parallel/shard_map_store.py); the steps run unchanged on it.
 
 `_mapping_chunk_impl` is the chunk driver as a function of the state (the
 batched replay of parallel/replay.py runs it per stream);
@@ -62,6 +63,7 @@ from lins_tpu_torch.mapping.keyframes import take_row
 from lins_tpu_torch.mapping.scan2map import scan_to_map_grids
 from lins_tpu_torch.ops.voxel import voxel_downsample
 from lins_tpu_torch.ops.voxel_map import VoxDelta, VoxelMap
+from lins_tpu_torch.parallel.shard_map_store import shard_store
 from lins_tpu_torch.utils.device import resolve_device, resolve_dtype
 from lins_tpu_torch.utils.tree import cond, tree_where
 
@@ -443,6 +445,14 @@ def mapper_state_from_numpy(d, device=None, dtype=torch.float32):
         n_loops=tensor(get(d, "n_loops")))
 
 
+def _canonical(device) -> torch.device:
+    """`device` with its index: "cuda" is the current card."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
 def _fill_vector(values, dtype, device):
     """A short host vector as a device tensor made of fills: a host->device
     copy would wait for the stream."""
@@ -486,10 +496,29 @@ class LinsMapper:
         self.metrics = []
         self.trajectory = []
         self.loop_info = []
+        self._shard_mesh = None
 
     def shard_store_over(self, mesh, axis: str = "seq"):
-        raise NotImplementedError(
-            f"LinsMapper.shard_store_over: {pg.PARALLEL_SLICE}")
+        """Split the keyframe store's clouds along the keyframe axis over
+        `mesh` (a `parallel.multihost.Mesh` whose first device is the
+        mapper's) and keep them there: the store is re-pinned after every
+        call that changes the state, as in the reference.  The window,
+        loop and checkpoint gathers read across the shards
+        (parallel/shard_map_store.py); sharded and unsharded runs give the
+        same trajectory."""
+        if _canonical(mesh.devices[0]) != _canonical(self.device):
+            raise ValueError(f"shard_store_over: the mesh's first device "
+                             f"{mesh.devices[0]} is not the mapper's "
+                             f"{self.device}")
+        self._shard_mesh = (mesh, axis)
+        self._repin()
+
+    def _repin(self):
+        if self._shard_mesh is None:
+            return
+        mesh, axis = self._shard_mesh
+        self.state = self.state._replace(
+            store=shard_store(self.state.store, mesh, axis))
 
     def warmup(self, cloud_dtype=None, chunk: int | None = None):
         """Kept for API parity with the reference package, whose warmup
@@ -534,6 +563,7 @@ class LinsMapper:
                               corner_xyz, corner_valid, surf_xyz, surf_valid,
                               outl_xyz, outl_valid, rp)
         self.trajectory.append((time, t_m, q_m))
+        self._repin()
         return t_m, q_m
 
     def _loops(self) -> bool:
@@ -592,6 +622,7 @@ class LinsMapper:
             self.metrics.append(metrics)
             self.trajectory.append((float(ts_host[i]), t_m, q_m))
         self.loop_info.extend(info for _, info in loops)
+        self._repin()
         return pos, quat
 
     def maybe_close_loop(self, time: float):
@@ -602,8 +633,10 @@ class LinsMapper:
         if not self._loops() or time - self.last_loop_time < 1.0:
             return None
         self.last_loop_time = time
-        return self._loop_step(torch.full((), time, dtype=self.dtype,
+        info = self._loop_step(torch.full((), time, dtype=self.dtype,
                                           device=self.device))
+        self._repin()
+        return info
 
     def final_solve(self):
         """Pose-graph solve and rewrite over all accumulated edges
@@ -614,6 +647,7 @@ class LinsMapper:
             return
         self.state = _final_solve_impl(self.state, self.cfg, 8,
                                        self.n_window, self.gp)
+        self._repin()
 
     def rebuild_local_map(self):
         """Rebuild the derived local-map caches (voxel maps + eviction
@@ -643,6 +677,7 @@ class LinsMapper:
         state without its local map gets it rebuilt from the store
         (`rebuild_local_map`)."""
         self.state = mapper_state_from_numpy(d, self.device, self.dtype)
+        self._repin()
         if self.state.lmap is None:
             self.rebuild_local_map()
         self._has_map = int(self.state.store.count) > 0

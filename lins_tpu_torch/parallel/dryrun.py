@@ -7,10 +7,9 @@ on a small VLP-16 configuration, with example inputs.
 
 dryrun_multichip(n): an n-shard mesh; the batched per-scan step and the
 full SLAM replay over a batch of n streams (data parallelism over
-sequences, SURVEY.md §2 P4), and the edge-sharded sparse pose-graph solve
-(P3).  The reference's third part, the window assembly from a keyframe
-store sharded over the mesh, waits for the port's sharded store and is
-skipped, and the function says so.
+sequences, SURVEY.md §2 P4), the edge-sharded sparse pose-graph solve
+(P3), and the window map rebuilt from a keyframe store sharded along the
+keyframe axis over the mesh (P3).
 """
 from __future__ import annotations
 
@@ -18,6 +17,7 @@ import numpy as np
 import torch
 
 from lins_tpu_torch.utils.device import resolve_device
+from lins_tpu_torch.utils.tree import tree_map
 
 
 def _small_cfg():
@@ -88,14 +88,19 @@ def dryrun_multichip(n_devices: int, device=None) -> dict:
     """An n-shard mesh (n cards, or with device="cpu" n shards of the CPU)
     and the engine's parallel axes on it: P4, the batched per-scan step and
     the full SLAM replay over n streams; P3, the edge-sharded sparse
-    pose-graph solve.  Returns what ran and what was skipped."""
+    pose-graph solve and the window map rebuilt from a keyframe store
+    sharded over the mesh (equal to the unsharded rebuild).  Returns what
+    ran and what was skipped."""
     from lins_tpu_torch.geom import so3
     from lins_tpu_torch.graph import pose_graph as pg
+    from lins_tpu_torch.mapping import keyframes as kf
+    from lins_tpu_torch.mapping import local_map as lmn
     from lins_tpu_torch.mapping.mapper import LinsMapper
     from lins_tpu_torch.parallel.dist_graph import make_sharded_cg_optimizer
     from lins_tpu_torch.parallel.replay import (
         batched_initial_states, batched_mapper_state, batched_scan_step,
         make_mesh, make_sharded_slam_replay)
+    from lins_tpu_torch.parallel.shard_map_store import shard_store
 
     dev = resolve_device(device)
     cfg = _small_cfg()
@@ -160,13 +165,45 @@ def dryrun_multichip(n_devices: int, device=None) -> dict:
     err1 = float(torch.linalg.vector_norm(pos_s - pos_gt))
     assert bool(torch.isfinite(pos_s).all()) and err1 < err0, (err1, err0)
 
+    # --- P3: keyframe-axis-sharded store -> window map rebuild -----------
+    kcfg = cfg.replace(max_keyframes=4 * mesh.size)
+    store = kf.empty_store(kcfg, 64, 128, 32, device=dev)
+
+    def cloud(n):
+        return torch.as_tensor(rng.uniform(-5, 5, (n, 3)), **f32)
+
+    for i in range(3 * mesh.size):
+        ones = [torch.ones(n, dtype=torch.bool, device=dev)
+                for n in (64, 128, 32)]
+        store = kf.add_keyframe(
+            store, torch.as_tensor(rng.uniform(-3, 3, 3), **f32),
+            so3.quat_normalize(torch.as_tensor(rng.normal(size=4), **f32)),
+            torch.tensor(float(i), **f32), cloud(64), ones[0], cloud(128),
+            ones[1], cloud(32), ones[2])
+    gp = lmn.grid_params(kcfg)
+    lm = lmn.empty_local_map(kcfg, 8, 64, 128, 32, torch.float32, gp, dev)
+    ids, ok, wslots = lmn.recent_window_ids(store, 8)
+    whole = lmn.rebuild_window(lm, store, ids, ok, wslots, gp)
+    lm = lmn.rebuild_window(lm, shard_store(store, mesh), ids, ok, wslots,
+                            gp)
+    assert int(lm.n_surf) > 0 and bool(torch.isfinite(
+        lm.surf_vm.cells).all())
+    assert all(bool(torch.equal(a, b)) for a, b in zip(
+        _leaves(lm), _leaves(whole))), "sharded != unsharded window map"
+
     report = dict(
         shards=mesh.size, devices=[str(d) for d in mesh.devices],
         ran=["P4 batched per-scan step", "P4 full SLAM replay",
-             "P3 edge-sharded sparse pose-graph solve"],
-        skipped=["P3 window assembly from a sharded keyframe store: the "
-                 "port's sharded store is not written yet"],
-        cg_error_m=(err0, err1))
+             "P3 edge-sharded sparse pose-graph solve",
+             "P3 window map from a keyframe-sharded store"],
+        skipped=[], cg_error_m=(err0, err1))
     print(f"dryrun_multichip({n_devices}): ok - {', '.join(report['ran'])} "
-          f"on {mesh.size} shards; skipped: {report['skipped'][0]}")
+          f"on {mesh.size} shards")
     return report
+
+
+def _leaves(tree):
+    """The tensors of a state container, in field order."""
+    out = []
+    tree_map(out.append, tree)
+    return out

@@ -96,8 +96,13 @@ def save_state(path: str, odometry=None, mapper=None, extra=None):
             _flatten(odometry.last_surf, "last_surf", out)
             _flatten(odometry.last_corner, "last_corner", out)
     if mapper is not None:
-        # the local map is derived from the store: left out
-        _flatten(mapper.state._replace(lmap=None), "mapper_state", out)
+        from lins_tpu_torch.parallel.shard_map_store import unshard_store
+
+        # the local map is derived from the store: left out; a store
+        # sharded over a mesh is written whole, as an unsharded one
+        _flatten(mapper.state._replace(
+            lmap=None, store=unshard_store(mapper.state.store)),
+            "mapper_state", out)
         meta["mapper"] = dict(last_time=mapper.last_time,
                               last_loop_time=mapper.last_loop_time)
     if extra:
@@ -140,7 +145,8 @@ def load_state(path: str, odometry=None, mapper=None):
                                               odometry.last_corner)
     if mapper is not None and "mapper_state/__len__" in data:
         # the mapper state without its local map, handed over as the
-        # reference package's is (`LinsMapper.load_numpy_state`)
+        # reference package's is (`LinsMapper.load_numpy_state`, which
+        # re-shards the store of a mapper sharded over a mesh)
         mapper.load_numpy_state(
             _unflatten(data, "mapper_state",
                        mapper.state._replace(lmap=None)),
@@ -158,8 +164,9 @@ def global_map_points(mapper, leaf: float = 0.4, cap: int = 1 << 20):
     from lins_tpu_torch.geom import so3
     from lins_tpu_torch.mapping import keyframes as kfm
     from lins_tpu_torch.ops.voxel import voxel_downsample
+    from lins_tpu_torch.parallel.shard_map_store import unshard_store
 
-    store = mapper.state.store
+    store = unshard_store(mapper.state.store)
     keep = kfm.live_mask(store)[:, None]
 
     def to_world(cloud, valid):

@@ -28,8 +28,10 @@ def tree_map(fn, tree, *rest):
 
 
 def tree_where(cond, a, b):
-    """Leaf-wise torch.where(cond, a, b) over two containers."""
-    return tree_map(lambda x, y: torch.where(cond, x, y), a, b)
+    """Leaf-wise torch.where(cond, a, b) over two containers.  `cond` goes
+    to each leaf's device: a keyframe store sharded over several cards
+    holds leaves on each."""
+    return tree_map(lambda x, y: torch.where(cond.to(x.device), x, y), a, b)
 
 
 def cond(pred: torch.Tensor, branch, keep):

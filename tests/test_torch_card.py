@@ -760,3 +760,66 @@ def test_optimize_cg_on_card_matches_cpu_float64(cuda_device):
     assert np.abs(want[0].numpy() - pos).max() > 0.01
     np.testing.assert_allclose(got[0].cpu().double().numpy(),
                                want[0].numpy(), rtol=0, atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_sharded_store_on_card_matches_unsharded(cuda_device):
+    """A 64-slot store filled past the ring's wrap (70 keyframes), split
+    over 4 parts of the one card: the window assembly, the window rebuild,
+    the loop attempt's clouds and a write into each shard equal the
+    unsharded ones on the card bit for bit, for windows across each seam
+    and the wrap."""
+    from lins_tpu_torch.graph import loop_closure as lc
+    from lins_tpu_torch.mapping import keyframes as kf
+    from lins_tpu_torch.mapping import local_map as lmn
+    from lins_tpu_torch.parallel.multihost import Mesh
+    from lins_tpu_torch.parallel.shard_map_store import shard_store
+
+    def dev(x):
+        return torch.as_tensor(x, device=cuda_device)
+
+    K, count, W, caps = 64, 70, 8, (32, 64, 16)
+    cfg = TINY.replace(max_keyframes=K, history_keyframe_search_num=5,
+                       loop_time_gate=1.0)
+    rng = np.random.default_rng(0)
+    slots = np.arange(K)
+    ids = slots + K * ((count - 1 - slots) // K)
+    q = rng.normal(size=(K, 4))
+    store = kf.empty_store(cfg, *caps, device=cuda_device)._replace(
+        pos=dev(rng.uniform(-20, 20, (K, 3)).astype(np.float32)),
+        quat=dev((q / np.linalg.norm(q, axis=1, keepdims=True)).astype(
+            np.float32)),
+        time=dev((0.1 * ids).astype(np.float32)),
+        kf_id=dev(ids.astype(np.int32)),
+        count=dev(np.int32(count)),
+        **{f: dev(rng.uniform(-10, 10, (K, c, 3)).astype(np.float32))
+           for f, c in zip(("corner", "surf", "outlier"), caps)},
+        **{f + "_valid": dev(rng.random((K, c)) < 0.9)
+           for f, c in zip(("corner", "surf", "outlier"), caps)})
+    sharded = shard_store(store, Mesh([torch.device("cuda", 0)] * 4))
+    gp = lmn.grid_params(cfg)
+    lm = lmn.empty_local_map(cfg, W, *caps, torch.float32, gp, cuda_device)
+    t_cur = dev(np.float32(100.0))
+
+    def equal(a, b):
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+    for center in (18, 35, 50, 66, 69):
+        c = dev(np.int32(center))
+        win = dev(np.arange(center - W + 1, center + 1, dtype=np.int32))
+        ok, wslots = win >= count - K, torch.remainder(win, W).int()
+        equal(kf.assemble_local_map(sharded, c, W, 1024, 2048, 0.2, 0.4,
+                                    True),
+              kf.assemble_local_map(store, c, W, 1024, 2048, 0.2, 0.4, True))
+        got = lmn.rebuild_window(lm, sharded, win, ok, wslots, gp)
+        want = lmn.rebuild_window(lm, store, win, ok, wslots, gp)
+        equal(got.dc, want.dc)
+        equal(got.dsf, want.dsf)
+        assert torch.equal(got.surf_vm.cells, want.surf_vm.cells)
+        equal(lc.loop_clouds(sharded, c - 3, c, t_cur, cfg, 1024, 512),
+              lc.loop_clouds(store, c - 3, c, t_cur, cfg, 1024, 512))
+    for slot in (0, 15, 16, 40, 63):
+        i = dev(np.int64(slot))
+        row = dev(rng.normal(size=(caps[1], 3)).astype(np.float32))
+        assert torch.equal(kf.put_row(sharded.surf, i, row).gather(),
+                           kf.put_row(store.surf, i, row))

@@ -13,9 +13,9 @@ against lins_tpu on the same numpy inputs:
   * one mapping step, and the window map's compaction rebuild, started
     from the reference's state (`mapper_state_from_numpy`); one step with
     the rebuild due, in the card's form equal to the branches taken;
-  * the loop-closure entry points run and the sharded store raises (it
-    waits for the parallel slice; the radius-selected map is
-    tests/test_torch_radius.py's).
+  * the loop-closure entry points run, also on a store sharded over CPU
+    shards (the radius-selected map is tests/test_torch_radius.py's, the
+    sharded store tests/test_torch_shardstore.py's).
 
 The reference's LinsSlam keeps its mapper at float32, so its float64 mapper
 is set in by hand.  Its selection runs the sort path (`use_pallas_select`
@@ -331,15 +331,24 @@ def test_scan_to_map_one_shot(data):
 def test_slice_3_entry_points_raise():
     """The loop-closure entry points of slice 3 run (TCFG has loop attempts
     off, so the attempt is skipped; on an empty store the final solve keeps
-    the state); the sharded store still waits for the parallel slice."""
+    the state), and so does the sharded store: over a mesh of 4 CPU shards
+    the final solve keeps the count and the store stays sharded
+    (tests/test_torch_shardstore.py holds it to the unsharded store)."""
+    from lins_tpu_torch.parallel.multihost import Mesh
+    from lins_tpu_torch.parallel.shard_map_store import ShardedRows
+
     m = tmapper.LinsMapper(TCFG, device="cpu", **MAP_KW)
     assert m.maybe_close_loop(1.0) is None
     count = int(m.state.store.count)
     m.final_solve()
     assert int(m.state.store.count) == count
     assert torch.isfinite(m.state.aft_pos).all()
-    with pytest.raises(NotImplementedError, match="parallel slice"):
-        m.shard_store_over(None)
+    m.shard_store_over(Mesh(["cpu"] * 4))
+    m.final_solve()
+    assert int(m.state.store.count) == count
+    surf = m.state.store.surf
+    assert isinstance(surf, ShardedRows) and len(surf.parts) == 4
+    assert surf.shape == (TCFG.max_keyframes, MAP_KW["surf_cap"], 3)
 
 
 if __name__ == "__main__":

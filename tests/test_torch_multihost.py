@@ -9,7 +9,11 @@ counterpart of tests/test_multihost.py:
     `local_batch_slice` and `make_global_batch` (every rank gets the
     concatenation of every rank's rows), and the edge-sharded dense and
     sparse solves split over the two processes, which equal the
-    one-process 2-shard solves within 1e-12 m.
+    one-process 2-shard solves within 1e-12 m;
+  * two processes each holding half of a keyframe store
+    (`shard_store` over the two-process mesh): the window assembly, the
+    window rebuild, a write into the other process's half and the whole
+    store gathered back equal the unsharded ones bit for bit.
 """
 import os
 import socket
@@ -79,6 +83,70 @@ print(f"MULTIHOST_OK {{pid}}", flush=True)
 """
 
 
+_STORE_WORKER = r"""
+import os, sys
+sys.path.insert(0, {repo!r})
+import numpy as np
+import torch
+
+from lins_tpu_torch.config import VLP16
+from lins_tpu_torch.mapping import keyframes as kf
+from lins_tpu_torch.mapping import local_map as lmn
+from lins_tpu_torch.parallel import multihost
+from lins_tpu_torch.parallel.shard_map_store import shard_store, unshard_store
+from lins_tpu_torch.utils.tree import tree_map
+
+torch.set_num_threads(1)
+pid = int(os.environ["JAX_PROCESS_ID"])
+assert multihost.initialize(device="cpu", timeout_s=120), "not enrolled"
+mesh = multihost.global_mesh(["cpu"])
+assert mesh.size == 2 and mesh.offset == pid, mesh
+
+# the same seeded store in both processes: 12 keyframes in 8 slots
+f64 = torch.float64
+cfg = VLP16.replace(max_keyframes=8)
+rng = np.random.default_rng(0)
+store = kf.empty_store(cfg, 16, 32, 8, dtype=f64)
+for i in range(12):
+    q = rng.normal(size=4)
+    cl = [torch.as_tensor(rng.uniform(-5, 5, (n, 3))) for n in (16, 32, 8)]
+    ok = [torch.as_tensor(rng.random(n) < 0.9) for n in (16, 32, 8)]
+    store = kf.add_keyframe(store, torch.as_tensor(rng.uniform(-3, 3, 3)),
+                            torch.as_tensor(q / np.linalg.norm(q)),
+                            torch.tensor(float(i), dtype=f64), cl[0], ok[0],
+                            cl[1], ok[1], cl[2], ok[2])
+sharded = shard_store(store, mesh)
+assert sharded.surf.parts[0].shape[0] == 4 and len(sharded.surf.parts) == 1
+
+
+def equal(a, b):
+    xs, ys = [], []
+    tree_map(xs.append, a)
+    tree_map(ys.append, b)
+    assert len(xs) == len(ys) > 0
+    assert all(torch.equal(x, y) for x, y in zip(xs, ys))
+
+
+center = torch.tensor(11, dtype=torch.int32)
+for outl in (False, True):
+    equal(kf.assemble_local_map(sharded, center, 6, 256, 512, 0.2, 0.4, outl),
+          kf.assemble_local_map(store, center, 6, 256, 512, 0.2, 0.4, outl))
+gp = lmn.grid_params(cfg)
+lm = lmn.empty_local_map(cfg, 6, 16, 32, 8, f64, gp, "cpu")
+ids, ok, wslots = lmn.recent_window_ids(store, 6)
+equal(lmn.rebuild_window(lm, sharded, ids, ok, wslots, gp),
+      lmn.rebuild_window(lm, store, ids, ok, wslots, gp))
+# slot 5 lives in process 1's half
+row = torch.as_tensor(rng.normal(size=(32, 3)))
+i = torch.tensor(5)
+got = kf.put_row(sharded.surf, i, row)
+assert torch.equal(got.gather(), kf.put_row(store.surf, i, row))
+equal(unshard_store(sharded), store)
+multihost.shutdown()
+print(f"STORE_OK {{pid}}", flush=True)
+"""
+
+
 def _free_port():
     s = socket.socket()
     s.bind(("127.0.0.1", 0))
@@ -104,10 +172,12 @@ def test_single_process_fallback(monkeypatch):
     assert mesh.psum(parts).tolist() == [3.0, 3.0]
 
 
-def test_two_process_enrollment(tmp_path):
+def _run_two(tmp_path, worker, ok_line):
+    """Run `worker` in two processes enrolled through the reference's
+    variables; each must exit 0 and print `ok_line` and its id."""
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     script = tmp_path / "worker.py"
-    script.write_text(_WORKER.format(repo=repo))
+    script.write_text(worker.format(repo=repo))
     coord = f"127.0.0.1:{_free_port()}"
     procs = []
     for i in range(2):
@@ -128,4 +198,12 @@ def test_two_process_enrollment(tmp_path):
                 p.wait()
     for i, (rc, out) in enumerate(outs):
         assert rc == 0, f"worker {i} failed:\n{out}"
-        assert f"MULTIHOST_OK {i}" in out, out
+        assert f"{ok_line} {i}" in out, out
+
+
+def test_two_process_enrollment(tmp_path):
+    _run_two(tmp_path, _WORKER, "MULTIHOST_OK")
+
+
+def test_two_process_sharded_store(tmp_path):
+    _run_two(tmp_path, _STORE_WORKER, "STORE_OK")

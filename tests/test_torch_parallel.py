@@ -276,5 +276,6 @@ def test_dryrun_entry():
 
 def test_dryrun_multichip():
     report = dryrun.dryrun_multichip(2, device="cpu")
-    assert report["shards"] == 2 and len(report["ran"]) == 3
-    assert "sharded store" in report["skipped"][0]
+    assert report["shards"] == 2 and len(report["ran"]) == 4
+    assert report["skipped"] == []
+    assert "keyframe-sharded store" in report["ran"][3]
