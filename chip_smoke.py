@@ -61,7 +61,21 @@ Phases, in order; any failure exits non-zero:
                  then K3 against its plain version on real gathers of the
                  final map, bit for bit for both d2C rules, with kernel,
                  plain and library times, both bounds and the previous
-                 route's parts; the pair faster than the previous kernel
+                 route's parts; the pair faster than the previous kernel;
+                 then the fused voxel-grid build (grid_nn.
+                 build_grid_voxelized) over the raw window points at the
+                 last keyframe at the mapper's grid geometry: its voxels
+                 the voxel map build's slot for slot and voxel_downsample's
+                 count, its centroids within 1e-4 m of the float64 means
+                 (the float32 builds' error logged); K3 through
+                 gather_candidates on it (one launch, counted with K3's)
+                 bit for bit against its plain version and its kept
+                 distances against the voxel map grid's within the
+                 centroids' shift; K3 on a supercell grid (leaf 0.4 m, m
+                 5, cap 128) and the dense corner cell (216 voxels, cap
+                 224); grid_knn against top_k_nn under the 1 m gate (rtol
+                 1e-3, atol 2e-3, >= 50 queries) and a CPU float64 copy;
+                 build and K3 times
      path V      bench.py's main cell: the same with loop attempts on, over
                  the same 70 scans (no revisit, so no loop is found, but every
                  attempt's alignment is computed and selected on the card):
@@ -158,6 +172,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -222,6 +237,16 @@ DIST_TOL_M = 1e-5
 # against each stream's own LinsSlam chunk in the same process
 STREAM_SPEEDS = (1.2, 1.5, 1.8, 2.1)
 STREAM_TOL_M = 1e-4
+# the fused voxel-grid build on the window path's final map: centroids
+# against the voxel map's and voxel_downsample's (float32 prefix sums),
+# K3's kept distances on it against the voxel map grid's; grid_knn against
+# brute force under the 1 m gate at the reference's limits
+# (tests/test_mapping.py:84-86) on at least KNN_MIN_GATED queries, and the
+# card's float32 against a CPU float64 copy
+GRID_CENT_TOL_M = 1e-4
+GRID_D2_RTOL = 1e-5
+KNN_RTOL, KNN_ATOL, KNN_MIN_GATED = 1e-3, 2e-3, 50
+KNN_CPU_RTOL, KNN_CPU_ATOL = 1e-5, 1e-5
 # the runner enrolled through the reference's variables in a world of one
 MULTIHOST_SCANS = 20
 # the runner on the card: a radius run of the gentle sequence with a
@@ -1037,10 +1062,10 @@ def k3_times(args, C, what, previous):
         f"{ms:.4f} ms on the card ({paced_ms:.4f} ms paced by the host), "
         f"plain {plain_ms:.4f} ms, library yardstick {library_ms:.4f} ms; "
         f"bound {bound_ms:.5f} ms ({bound_by}; {bytes_moved} B, {ops} ops), "
-        f"the previous contract's {old_bound_ms:.5f} ms ({old_bytes} B); the "
-        f"previous route's parts " + ", ".join(
+        f"the previous contract's {old_bound_ms:.5f} ms ({old_bytes} B)"
+        + (("; the previous route's parts " + ", ".join(
             f"{k} {v:.4f}" for k, v in previous.items())
-        + f" ms (sum {sum(previous.values()):.4f})")
+            + f" ms (sum {sum(previous.values()):.4f})") if previous else ""))
     return dict(ms=ms, paced_ms=paced_ms, plain_ms=plain_ms,
                 library_ms=library_ms, bytes=bytes_moved, ops=ops,
                 bound_ms=bound_ms, old_bound_ms=old_bound_ms)
@@ -1122,6 +1147,286 @@ def phase_k3_real(slam, smi):
                 launches=None, max_abs_err=err, ms=tot["ms"] / 2,
                 plain_ms=tot["plain_ms"] / 2, bound_ms=b_ms / 2,
                 bound_by=b_by, library_ms=tot["library_ms"] / 2)
+
+
+def _window_points(mapper):
+    """The raw world-frame points of the recent window at the last
+    keyframe (`keyframes.gather_window`): (corner points, valid), (surf +
+    outlier points, valid), as the mapper's window rebuild unions them."""
+    import torch
+
+    from lins_tpu_torch.geom import so3
+    from lins_tpu_torch.mapping import keyframes as kfm
+
+    store = mapper.state.store
+    slots, ok, _ = kfm.gather_window(store, store.count - 1, mapper.n_window)
+    p = kfm.take_rows(store.pos, slots)[:, None, :]
+    q = kfm.take_rows(store.quat, slots)[:, None, :]
+
+    def world(cloud, valid):
+        return (so3.quat_rotate(q, kfm.take_rows(cloud, slots)) + p,
+                kfm.take_rows(valid, slots) & ok[:, None])
+
+    cw, cv = world(store.corner, store.corner_valid)
+    sw, sv = world(store.surf, store.surf_valid)
+    ow, ov = world(store.outlier, store.outlier_valid)
+    return ((cw.reshape(-1, 3), cv.reshape(-1)),
+            (torch.cat([sw, ow], 1).reshape(-1, 3),
+             torch.cat([sv, ov], 1).reshape(-1)))
+
+
+def _lex(v):
+    """Row order of integer triples (n, 3), lexicographic."""
+    from lins_tpu_torch.ops.voxel import lex_order, pair_key
+
+    return lex_order([pair_key(v[:, 0], v[:, 1]), v[:, 2].long()])
+
+
+def _grid_centroids(grid, leaf):
+    """The fused grid's centroids in the lexicographic order of their
+    voxels, and those voxels.  A centroid is the mean of points of one
+    voxel, rounded once, so it lies in that voxel."""
+    import torch
+
+    from lins_tpu_torch.frontend.projection import div_const
+
+    live = (torch.arange(grid.cap, device=grid.cnt.device)[None, :]
+            < grid.cnt[:, None])
+    c = grid.cells.transpose(1, 2)[live]
+    v = torch.floor(div_const(c, leaf)).to(torch.int32)
+    o = _lex(v)
+    return c[o], v[o]
+
+
+def _voxel_means64(pts, ok, leaf):
+    """The voxels of the valid points in lexicographic order and their
+    means, summed in float64 by voxel (no prefix sums)."""
+    import torch
+
+    from lins_tpu_torch.frontend.projection import div_const
+
+    p = pts[ok]
+    v = torch.floor(div_const(p, leaf)).to(torch.int32)
+    uv, inv = torch.unique(v, dim=0, return_inverse=True)
+    sums = torch.zeros((len(uv), 3), dtype=torch.float64, device=p.device)
+    sums.index_add_(0, inv, p.double())
+    n = torch.bincount(inv, minlength=len(uv))
+    return uv, sums / n[:, None]
+
+
+def _kept_d2(query, cand, cand_ok):
+    """Each query's kept squared distances in ascending order, +inf in an
+    empty slot."""
+    import torch
+
+    diff = cand - query[:, None, :]
+    d2 = torch.where(cand_ok, torch.sum(diff * diff, -1), torch.inf)
+    return torch.sort(d2, dim=1).values
+
+
+def phase_grid_voxelized(slam, smi):
+    """The fused voxel-grid build (`grid_nn.build_grid_voxelized`) on the
+    window path's final state, at the mapper's own grid geometry, over the
+    raw window points at the last keyframe: against the voxel map's build
+    (`build_voxel_map(...).as_grid()`, the same voxels slot for slot) and
+    `voxel_downsample` of the same points (the same count), its centroids
+    within GRID_CENT_TOL_M of the voxels' float64 means; K3 through
+    `gather_candidates` on it for the last scan's world-frame queries, bit
+    for bit against its plain version and its kept distances against the
+    voxel map grid's; K3 on a supercell grid (the reference's leaf 0.4 m,
+    m 5, cap 128) and on the reference's dense corner cell; `grid_knn`
+    against `top_k_nn` by brute force under the 1 m gate and against a
+    CPU float64 copy.  Returns (K3 launches of the `gather_candidates`
+    calls, the largest difference of K3's kept distances from its plain
+    version's, the largest centroid error of the float32 builds against
+    the float64 means)."""
+    import torch
+
+    from lins_tpu_torch.frontend.projection import div_const
+    from lins_tpu_torch.geom import so3
+    from lins_tpu_torch.mapping.mapper import downsample_scan
+    from lins_tpu_torch.ops import grid_nn
+    from lins_tpu_torch.ops.voxel import top_k_nn, voxel_downsample
+    from lins_tpu_torch.ops.voxel_map import build_voxel_map
+
+    log("== 5. the fused voxel-grid build, grid_knn and K3 on the window "
+        "path's final map")
+    mapper, args = _mapping_inputs(slam)
+    cfg, st, gp, dev = mapper.cfg, mapper.state, mapper.gp, mapper.device
+    C = cfg.s2m_cand
+    sc = downsample_scan(*args[3:9], cfg, *mapper.caps, mapper.dtype)
+
+    def world(pts):
+        return so3.quat_rotate(st.aft_quat[None], pts) + st.aft_pos
+
+    (cw, cv), (sw, sv) = _window_points(mapper)
+    grids, launches, k3_err, cent_err = {}, 0, 0.0, 0.0
+    for what, pts, ok, q, q_ok, geo in (
+            ("corner", cw, cv, world(sc.query_corner), sc.query_corner_ok,
+             (gp.corner_leaf, gp.corner_m, gp.corner_table, gp.corner_cap,
+              gp.corner_nb)),
+            ("surf", sw, sv, world(sc.query_surf), sc.query_surf_ok,
+             (gp.surf_leaf, gp.surf_m, gp.surf_table, gp.surf_cap,
+              gp.surf_nb))):
+        leaf = geo[0]
+        fused, n_vox = grid_nn.build_grid_voxelized(pts, ok, *geo)
+        vm = build_voxel_map(pts, ok, *geo)
+        vd, vd_ok = voxel_downsample(pts, ok, leaf)
+        fused_ms = cuda_ms(lambda: grid_nn.build_grid_voxelized(
+            pts, ok, *geo), 5)
+        vm_ms = cuda_ms(lambda: build_voxel_map(pts, ok, *geo), 5)
+        n_vox, n_vm, n_vd = int(n_vox), int(vm.n_live), int(vd_ok.sum())
+        check(n_vox == n_vm == n_vd == int(fused.cnt.sum()) > 0,
+              f"the fused {what} grid ({int(ok.sum())} of {len(ok)} window "
+              f"points, leaf {leaf}, m {geo[1]}, table {geo[2]}, cap "
+              f"{geo[3]}, nb {geo[4]}): {n_vox} voxels, every one in a "
+              f"slot; the voxel map {n_vm} live, voxel_downsample {n_vd}")
+        # the voxels: the fused grid's slots hold the voxel map's voxels
+        # slot for slot (both rank a cell's voxel runs in one sort order)
+        # and the voxels of the float64 means, computed apart
+        live = (torch.arange(fused.cap, device=dev)[None, :]
+                < fused.cnt[:, None])
+        slot_vox = torch.floor(div_const(fused.cells, leaf)).to(torch.int32)
+        check(torch.equal(fused.cnt, vm.hwm)
+              and torch.equal(live, vm.vcnt > 0)
+              and torch.equal(slot_vox.transpose(1, 2)[live],
+                              vm.vcoord.transpose(1, 2)[live]),
+              f"the fused {what} grid's slots hold the voxel map's voxels, "
+              f"slot for slot")
+        c, v = _grid_centroids(fused, leaf)
+        tv, tc = _voxel_means64(pts, ok, leaf)
+        vm_c = vm.cells.transpose(1, 2)[live][_lex(
+            vm.vcoord.transpose(1, 2)[live])]
+        e_f = float((c.double() - tc).norm(dim=1).max())
+        e_vm = float((vm_c.double() - tc).norm(dim=1).max())
+        e_vd = float((vd[:n_vd].double() - tc).norm(dim=1).max())
+        cent_err = max(cent_err, e_vm, e_vd)
+        check(torch.equal(v, tv) and e_f <= GRID_CENT_TOL_M,
+              f"the fused {what} grid's centroids (float64 run sums) within "
+              f"{GRID_CENT_TOL_M} m of their voxels' float64 means "
+              f"({e_f:.3e} m); the float32 prefix sums of the voxel map's "
+              f"build and of voxel_downsample err by {e_vm:.3e} and "
+              f"{e_vd:.3e} m")
+        _reset_counts()
+        got = grid_nn.gather_candidates(q, q_ok, fused, C, True)
+        torch.cuda.synchronize()
+        n = _counts()["select"]
+        check(n == 1, f"gather_candidates on the fused {what} grid: K3 "
+              f"launched {n} time(s)")
+        launches += n
+        k_args = _k3_args(q, q_ok, fused)
+        k3_err = max(k3_err, _k3_equal(k_args, C, f"the fused {what} grid "
+                                       f"({int(q_ok.sum())} valid queries)"))
+        # kept distances against the voxel map grid's: the same voxels, so
+        # each sorted kept distance (an order statistic) moves at most as
+        # far as the farthest centroid moved, e = |fused - voxel map|, plus
+        # float32 rounding
+        want = grid_nn.gather_candidates(q, q_ok, vm.as_grid(), C, True)
+        d_f, d_v = _kept_d2(q, got[0], got[1]), _kept_d2(q, want[0], want[1])
+        fin = torch.isfinite(d_v)
+        e = float((c - vm_c).norm(dim=1).max())
+        gap = (d_f - d_v).abs()[fin]
+        d = torch.maximum(d_f, d_v)[fin]
+        slack = 2 * d.sqrt() * e + e * e + GRID_D2_RTOL * d
+        check(torch.equal(fin, torch.isfinite(d_f))
+              and bool((gap <= slack).all()),
+              f"K3's kept distances on the fused {what} grid equal the voxel "
+              f"map grid's, {int(fin.sum())} kept: within 2 sqrt(d) e + e^2 "
+              f"+ {GRID_D2_RTOL} d, e = {e:.3e} m the largest centroid "
+              f"difference (largest difference {float(gap.max()):.3e}, "
+              f"relative {float((gap / d.clamp(min=1e-12)).max()):.3e})")
+        k3_times(k_args, C, f"the fused {what} grid", {})
+        k3_times(_k3_args(q, q_ok, vm.as_grid()), C,
+                 f"the voxel map's {what} grid", {})
+        k_fused = device_ms(lambda: grid_nn.gather_candidates(
+            q, q_ok, fused, C, True), 8)
+        k_vm = device_ms(lambda: grid_nn.gather_candidates(
+            q, q_ok, vm.as_grid(), C, True), 8)
+        if what == "surf":
+            for name, fn in (("build_grid_voxelized", grid_nn.
+                              build_grid_voxelized),
+                             ("build_voxel_map", build_voxel_map)):
+                log_profile(f"{name} of the surf window",
+                            profile_call(lambda fn=fn: fn(pts, ok, *geo))[0])
+        log(f"  {what}: build_grid_voxelized {fused_ms:.4f} ms, "
+            f"build_voxel_map {vm_ms:.4f} ms (CUDA events, paced by the "
+            f"host); gather_candidates (K3) on the fused grid {k_fused:.4f} "
+            f"ms, on the voxel map's grid {k_vm:.4f} ms (the card asleep "
+            f"while the host enqueues); {n_vox} voxels; on {smi}")
+        grids[what] = (fused, q, q_ok, pts, ok)
+
+    # the reference's supercell geometry (tests/test_mapping.py:265) over
+    # the surf window, and its dense corner cell (:308-323)
+    _, q, q_ok, pts, ok = grids["surf"]
+    g = (torch.arange(6, device=dev, dtype=pts.dtype) + 0.5) * 0.2
+    dense = torch.stack(torch.meshgrid(g, g, g, indexing="ij"),
+                        -1).reshape(-1, 3)
+    dq = torch.cat([torch.tensor([[0.61, 0.59, 0.6]], dtype=pts.dtype,
+                                 device=dev),
+                    dense[::7] + 0.05])
+    for what, p_, ok_, q_, q_ok_, geo in (
+            ("supercell", pts, ok, q, q_ok, (0.4, 5, gp.surf_table, 128, 8)),
+            ("dense corner", dense, torch.ones(216, dtype=torch.bool,
+                                               device=dev),
+             dq, torch.ones(len(dq), dtype=torch.bool, device=dev),
+             (0.2, 6, 512, 224, 27))):
+        grid, n_vox = grid_nn.build_grid_voxelized(p_, ok_, *geo)
+        check(int(grid.cnt.sum()) == int(n_vox) > 0
+              and (what != "dense corner" or int(grid.cnt.max()) == 216),
+              f"the {what} grid (leaf {geo[0]}, m {geo[1]}, cap {geo[3]}, "
+              f"nb {geo[4]}): {int(n_vox)} voxels, every one in a slot, "
+              f"{int(grid.cnt.max())} in the fullest bucket")
+        _reset_counts()
+        grid_nn.gather_candidates(q_, q_ok_, grid, C, True)
+        torch.cuda.synchronize()
+        n = _counts()["select"]
+        check(n == 1, f"gather_candidates on the {what} grid: K3 launched "
+              f"{n} time(s)")
+        launches += n
+        k_args = _k3_args(q_, q_ok_, grid)
+        k3_err = max(k3_err, _k3_equal(k_args, C, f"the {what} grid "
+                                       f"({len(q_)} queries)"))
+        k3_times(k_args, C, f"the {what} grid", {})
+        ms = device_ms(lambda: grid_nn.gather_candidates(
+            q_, q_ok_, grid, C, True), 8)
+        log(f"  gather_candidates (K3) on the {what} grid: {ms:.4f} ms on "
+            f"{smi}")
+
+    # grid_knn on the fused surf grid: brute force over its own centroids
+    # under the 1 m gate, the reference's limits (tests/test_mapping.py:
+    # 84-86), and a CPU float64 copy
+    fused, q, q_ok = grids["surf"][:3]
+    nn, d2 = grid_nn.grid_knn(q, q_ok, fused, 5)
+    ref = _grid_centroids(fused, gp.surf_leaf)[0]
+    _, d2_b = top_k_nn(q, q_ok, ref, torch.ones(len(ref), dtype=torch.bool,
+                                                device=dev), 5)
+    gate = d2_b[:, 4] < 1.0
+    n_gate = int(gate.sum())
+    err_b = float((d2[gate] - d2_b[gate]).abs().max()) if n_gate else 0.0
+    check(n_gate >= KNN_MIN_GATED
+          and torch.allclose(d2[gate], d2_b[gate], rtol=KNN_RTOL,
+                             atol=KNN_ATOL)
+          and bool((d2 >= d2_b - KNN_ATOL).all()),
+          f"grid_knn on the fused surf grid equals top_k_nn by brute force "
+          f"over {len(ref)} centroids for the {n_gate} of {int(q_ok.sum())} "
+          f"valid queries under the 1 m gate (>= {KNN_MIN_GATED}; within "
+          f"rtol {KNN_RTOL}, atol {KNN_ATOL}: {err_b:.3e}), never closer")
+    cpu = dataclasses.replace(fused, cells=fused.cells.cpu().double(),
+                              cnt=fused.cnt.cpu())
+    nn64, d2_64 = grid_nn.grid_knn(q.cpu().double(), q_ok.cpu(), cpu, 5)
+    fin = torch.isfinite(d2_64)
+    err_c = float((d2.cpu().double() - d2_64)[fin].abs().max())
+    check(torch.equal(fin, torch.isfinite(d2.cpu()))
+          and torch.allclose(d2.cpu().double(), d2_64, rtol=KNN_CPU_RTOL,
+                             atol=KNN_CPU_ATOL),
+          f"grid_knn on the card (float32) equals grid_knn of a CPU float64 "
+          f"copy: the same {int(fin.sum())} finite slots, distances within "
+          f"rtol {KNN_CPU_RTOL}, atol {KNN_CPU_ATOL} ({err_c:.3e})")
+    knn_ms = cuda_ms(lambda: grid_nn.grid_knn(q, q_ok, fused, 5), 5)
+    log(f"  grid_knn on the fused surf grid: {knn_ms:.4f} ms (CUDA events) "
+        f"on {smi}")
+    torch.cuda.synchronize()
+    return launches, k3_err, cent_err
 
 
 def _k6_equal(x, C, what):
@@ -1639,6 +1944,24 @@ def log_run(what, slam, r):
         f"the {r['held_bytes'] / 2**20:.1f} MiB held when it started")
 
 
+def log_ate_rmse(what, data, ps, err):
+    """Log the reference's own ATE (`slam.ate_rmse`: the ground truth put
+    into the estimator's frame, the first scan's end pose, no fit) beside
+    the Umeyama-fitted ATE `err` that the gates read."""
+    import torch
+
+    from lins_tpu_torch.geom import so3
+    from lins_tpu_torch.slam import ate_rmse
+
+    R0 = so3.quat_to_mat(torch.as_tensor(data["gt_quat"][0],
+                                         dtype=torch.float64)).numpy()
+    no_fit = ate_rmse(ps, data["gt_pos"][1:1 + len(ps)],
+                      (R0, data["gt_pos"][0]))
+    log(f"  {what}: ATE {err:.4f} m fitted (Umeyama), {no_fit:.4f} m in the "
+        f"estimator's frame with no fit (slam.ate_rmse)")
+    return no_fit
+
+
 def _mapping_log(slam):
     metrics = [{k: float(v) for k, v in m.items()}
                for m in slam.mapper.metrics]
@@ -1708,7 +2031,8 @@ def phase_odometry(cfg, data):
     err = ate(ps, data["gt_pos"][1:1 + len(ps)], align=True)
     check(err <= ATE_LIMIT_M,
           f"odometry ATE {err:.4f} m <= {ATE_LIMIT_M} m ({len(ps)} scans)")
-    return dict(r, ate=err, ps=ps)
+    no_fit = log_ate_rmse("odometry", data, ps, err)
+    return dict(r, ate=err, ps=ps, ate_no_fit=no_fit)
 
 
 def phase_mapping(cfg, data, odo_ps):
@@ -1771,7 +2095,8 @@ def phase_path_v(cfg, data):
     err = ate(ps, data["gt_pos"][1:1 + len(ps)], align=True)
     check(err <= ATE_LIMIT_M,
           f"fused ATE {err:.4f} m <= {ATE_LIMIT_M} m ({len(ps)} scans)")
-    return dict(r, slam=slam, ate=err, ps=ps)
+    no_fit = log_ate_rmse("path V", data, ps, err)
+    return dict(r, slam=slam, ate=err, ps=ps, ate_no_fit=no_fit)
 
 
 @contextlib.contextmanager
@@ -1911,7 +2236,9 @@ def phase_path_h(cfg, data, what="path H", ref_ate=REF_FUSED_ATE_H_M,
     check(err <= lim,
           f"fused ATE {err:.4f} m <= the JAX package's {ref_ate:.4f}"
           f" m + {ATE_MARGIN_H_M} m ({len(ps)} scans)")
-    return dict(r, slam=slam, ate=err, ps=ps, qs=qs, metrics=metrics,
+    no_fit = log_ate_rmse(what, data, ps, err)
+    return dict(r, slam=slam, ate=err, ate_no_fit=no_fit, ps=ps, qs=qs,
+                metrics=metrics,
                 n_loops=n_loops, n_kf=n_kf, n_edges=n_edges,
                 in_loops=in_loops)
 
@@ -2876,7 +3203,8 @@ def main():
     odo = phase_odometry(cfg, data)
     mp = phase_mapping(cfg_map, data, odo["ps"])
     k3 = phase_k3_real(mp["slam"], smi)
-    k3["max_abs_err"] = max(k3["max_abs_err"], k3_err)
+    grid_k3, grid_err, f32_err = phase_grid_voxelized(mp["slam"], smi)
+    k3["max_abs_err"] = max(k3["max_abs_err"], k3_err, grid_err)
     pv = phase_path_v(cfg_v, data)
     ph = phase_path_h(cfg_h, data_h)
     pr = phase_path_r(cfg_r, data, odo["ps"])
@@ -2892,7 +3220,10 @@ def main():
     # each read just after its own run
     k1["launches"] = sum(r["counts"]["label"] for r in runs.values())
     k2["launches"] = sum(r["counts"]["label_blocked"] for r in runs.values())
-    k3["launches"] = sum(r["counts"]["select"] for r in runs.values())
+    # K3's also the gather_candidates calls of the fused-grid phase, each
+    # read just after its call
+    k3["launches"] = sum(r["counts"]["select"]
+                         for r in runs.values()) + grid_k3
     # K6 is the canary's kernel, off every main path: its count must stay 0
     # until a path calls it
     k6["launches"] = sum(r["counts"]["topk"] for r in runs.values())
@@ -2902,7 +3233,7 @@ def main():
         f"{name} K1 {r['counts']['label']} K2 {r['counts']['label_blocked']}"
         f" K3 {r['counts']['select']} K4 {r['counts']['k4']} K5 "
         f"{r['counts']['k5']} K6 {r['counts']['topk']}"
-        for name, r in runs.items()))
+        for name, r in runs.items()) + f"; the fused-grid phase K3 {grid_k3}")
     check(k6["launches"] == 0, "K6 launched 0 times on the main paths")
     # K1's lost time, launch by launch: a 32-scan chunk at the chunk's time
     # and bound, a streamed scan at one scan's
@@ -2979,6 +3310,12 @@ def main():
         f"{hss_p['step']['launches']} (unsharded {hs_p['step']['launches']})"
         f", of a loop attempt {hss_p['attempt']['launches']} (unsharded "
         f"{hs_p['attempt']['launches']}); {n_seams} seam gathers equal")
+    log("    ATE in the estimator's frame, no fit (slam.ate_rmse): "
+        + ", ".join(f"{name} {runs[name]['ate_no_fit']:.4f} m"
+                    for name in ("odometry", "V", "H", "HR")))
+    log(f"    fused voxel grid: the float32 prefix sums of the voxel map's "
+        f"build and voxel_downsample err by up to {f32_err:.3e} m on the "
+        f"window map")
     log(f"    distributed solves vs one device: dense {dist['dense']:.2e} m, "
         f"sparse {dist['sparse']:.2e} m")
     log(f"    multi-stream: {pms['rate']:.3f} scans/s batched against "

@@ -293,6 +293,21 @@ def extract_rings(seg: SegmentedScan, cfg: SlamConfig):
     return label, sector_all & (label <= 0)
 
 
+def extract_ring(ring: dict, cfg: SlamConfig):
+    """Feature labels for one compacted ring: `extract_rings` over a scan
+    of that one ring.  ring: dict with rng (S,), col (S,), ground (S,),
+    valid (S,), count (); returns (label (S,) int32: 2 sharp, 1
+    less-sharp, -1 flat, 0 other; less_flat mask (S,))."""
+    count = torch.as_tensor(ring["count"], dtype=torch.int32,
+                            device=ring["rng"].device).reshape(1)
+    seg = SegmentedScan(
+        xyz=None, rng=ring["rng"][None], col=ring["col"][None],
+        ground=ring["ground"][None], valid=ring["valid"][None], count=count,
+        rel_time=None, start_orientation=None, orientation_diff=None)
+    label, less_flat = extract_rings(seg, cfg)
+    return label[0], less_flat[0]
+
+
 # ---------------------------------------------------------------------------
 # Voxel thinning
 # ---------------------------------------------------------------------------

@@ -11,6 +11,11 @@ prunes each block to its nearest C points once per mapping step (kernel K3,
 Gauss-Newton trip re-ranks that small cache at the current pose
 (`knn_from_candidates`).  Candidates are stored densely per
 bucket as (table, 3, cap) rows.
+
+Off the mapper's path, as in the reference: `build_grid_voxelized` (the
+voxel filter and the binning fused into one sort), `grid_knn` (the k
+nearest in the 27-cell block, no cache) and `gather_block` (the whole
+block, no pruning).
 """
 from __future__ import annotations
 
@@ -19,7 +24,7 @@ import dataclasses
 import torch
 
 from lins_tpu_torch.frontend.projection import div_const
-from lins_tpu_torch.ops.select import select_candidates
+from lins_tpu_torch.ops import select as _select
 from lins_tpu_torch.ops.voxel import IMIN, hash3
 
 
@@ -80,6 +85,50 @@ def build_grid(pts: torch.Tensor, valid: torch.Tensor, cell: float,
                     cell=float(cell), table=int(table), cap=int(cap))
 
 
+def build_grid_voxelized(pts: torch.Tensor, valid: torch.Tensor,
+                         leaf: float, m: int, table: int = 16384,
+                         cap: int = 32, nb: int = 27):
+    """Voxel-filter a masked (R, 3) point set and bin the centroids into
+    the hash grid, fused into one sort (the reference's alternative to
+    `voxel_downsample` + `build_grid`; PCL VoxelGrid at
+    lidar_mapping_node.cpp:283-291, KD-tree build :1355).
+
+    Rows are sorted by (bucket·m³ + voxel-in-cell id, then the exact voxel
+    coordinates), as the voxel map's build sorts them (`ops/voxel_map.
+    _runs`); each voxel run's centroid is its run mean, and its rank among
+    the voxel runs of its bucket is its slot in the (table, 3, cap) store
+    (slots from cap on are dropped and not counted).  The cell edge is
+    leaf·m, so voxels never straddle cells; m must make leaf·m >= 1 m
+    (nb=27) or >= 2 m (nb=8 supercells) for the 1 m gate's coverage.
+
+    Departure from the reference: the run sums are float64 prefix sums
+    (the reference's are in the points' dtype, which over a window map of
+    ~1e5 points loses digits of the centroids); centroids are rounded to
+    the points' dtype.  Returns (HashGrid, n_voxels), n_voxels the voxel
+    count (0-dim int32)."""
+    from lins_tpu_torch.ops.voxel_map import _rank_in_bucket_run, _runs
+
+    dev = pts.device
+    key_s, _, _, vstart, sums, n_run = _runs(pts, valid, leaf, m, table,
+                                              sum_dtype=torch.float64)
+    cent = (sums / torch.clamp(n_run, min=1)[:, None]).to(pts.dtype)
+    bkt_s = torch.div(key_s, m * m * m, rounding_mode="floor").to(
+        torch.int64)
+    slot = _rank_in_bucket_run(bkt_s, vstart)
+    keep = vstart & (slot < cap)
+    dump = table * 3 * cap          # a buffer one longer takes dropped rows
+    buf = torch.zeros(dump + 1, dtype=pts.dtype, device=dev)
+    for i in range(3):
+        buf[torch.where(keep, bkt_s * 3 * cap + i * cap + slot, dump)] = (
+            cent[:, i])
+    cnt = torch.zeros(table + 1, dtype=torch.int32, device=dev)
+    cnt.index_add_(0, torch.where(keep, bkt_s, table), keep.to(torch.int32))
+    grid = HashGrid(cells=buf[:-1].reshape(table, 3, cap), cnt=cnt[:-1],
+                    cell=float(leaf * m), table=int(table), cap=int(cap),
+                    nb=int(nb))
+    return grid, torch.sum(vstart, dtype=torch.int32)
+
+
 def _offsets(lo: int, hi: int, device) -> torch.Tensor:
     """The neighbour-cell offsets in [lo, hi)^3 as (n^3, 3) int32 in the
     reference's (meshgrid "ij") order: 27 around the cell, or the 8 of a
@@ -128,9 +177,8 @@ def gather_candidates(query: torch.Tensor, q_valid: torch.Tensor,
     """
     nbc, cover = _neighborhood(query, grid)
     bb = _bucket_of(nbc, grid.table)                           # (Q, nb)
-    out, cand_ok, _, d2C = select_candidates(query, q_valid, bb, grid.cells,
-                                             grid.cnt, C,
-                                             first_dropped=use_pallas)
+    out, cand_ok, _, d2C = _select.select_candidates(
+        query, q_valid, bb, grid.cells, grid.cnt, C, first_dropped=use_pallas)
     return out, cand_ok, d2C, cover
 
 
@@ -157,4 +205,43 @@ def knn_from_candidates(p_w: torch.Tensor, q_valid: torch.Tensor,
     nn = torch.einsum("qkc,qci->qki", torch.stack(sels, dim=1), cand)
     d2k = torch.stack(ds, dim=1)
     nn = torch.where(torch.isfinite(d2k)[:, :, None], nn, p_w[:, None, :])
+    return nn, d2k
+
+
+def gather_block(query: torch.Tensor, q_valid: torch.Tensor, grid: HashGrid):
+    """Every grid point of each query's neighbourhood block, with no
+    pruning (the reference's "no pruning" experiment; off the mapper's
+    path): cand (Q, nb·cap, 3) in cell-major order n·cap + s, ok (Q,
+    nb·cap) (slots below the bucket's count, of buckets no earlier
+    neighbour cell hashed to, of valid queries), cover (Q,)."""
+    nbc, cover = _neighborhood(query, grid)
+    cand, ok = _select.gather_block(_bucket_of(nbc, grid.table), grid.cells,
+                                    grid.cnt)
+    Q, n_off = nbc.shape[:2]
+    ok = ok & q_valid[:, None, None]
+    return (cand.transpose(2, 3).reshape(Q, n_off * grid.cap, 3),
+            ok.reshape(Q, n_off * grid.cap), cover)
+
+
+def grid_knn(query: torch.Tensor, q_valid: torch.Tensor, grid: HashGrid,
+             k: int = 5):
+    """k nearest grid points of each query within the 27 cells around
+    floor(q / cell), whatever the grid's `nb`, as the reference computes
+    them.  Duplicate buckets count once; tombstones (d2 >= 1e17) and
+    invalid queries are at +inf.  Ties keep the lower cell-major index n·cap
+    + s (a stable sort, as `lax.top_k` orders them).  Returns (nn (Q, k,
+    3), d2 (Q, k)); slots beyond the in-range candidates get +inf and the
+    query point itself as nn."""
+    Q = query.shape[0]
+    base = torch.floor(div_const(query, grid.cell)).to(torch.int32)
+    bb = _bucket_of(base[:, None, :] + _offsets(-1, 2, query.device)[None],
+                    grid.table)
+    cand, ok = _select.gather_block(bb, grid.cells, grid.cnt)
+    d2 = _select.masked_d2(query, q_valid, cand, ok)           # (Q, 27·cap)
+    d2 = torch.where(d2 < _select._FAR2, d2, torch.inf)
+    sel = torch.sort(d2, dim=1, stable=True).indices[:, :k]
+    d2k = torch.gather(d2, 1, sel)
+    nn = torch.take_along_dim(cand.transpose(2, 3).reshape(Q, -1, 3),
+                              sel[:, :, None], dim=1)
+    nn = torch.where(torch.isfinite(d2k)[:, :, None], nn, query[:, None, :])
     return nn, d2k

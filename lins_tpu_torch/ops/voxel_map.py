@@ -98,11 +98,13 @@ def _set_dropping(base: torch.Tensor, index, value) -> torch.Tensor:
     return buf[:-1]
 
 
-def _runs(pts, valid, leaf, m, table):
+def _runs(pts, valid, leaf, m, table, sum_dtype=None):
     """Shared voxelization front half, over (..., N, 3): bucket/lid
     composite key and exact voxel coordinates, stably sorted along N.
     Returns (key_s, vox_s (..., N, 3), sentinel, run starts, run point
-    sums (..., N, 3), run point counts), the last two read at run starts."""
+    sums (..., N, 3), run point counts), the last two read at run starts.
+    The sums are prefix-sum differences in `sum_dtype` (default: the
+    points' dtype, as the reference takes them)."""
     N = pts.shape[-2]
     dev = pts.device
     m3 = m * m * m
@@ -131,8 +133,9 @@ def _runs(pts, valid, leaf, m, table):
     ar = torch.arange(N, device=dev).expand(lead + (N,))
     next_pos = reverse_cummin(torch.where(nxt, ar + 1, N), -1)
 
-    cs = torch.cat([torch.zeros(lead + (1, 3), dtype=pts.dtype, device=dev),
-                    torch.cumsum(torch.where(vmask[..., None], pts_s, 0.0),
+    acc = pts_s.to(sum_dtype or pts.dtype)
+    cs = torch.cat([torch.zeros(lead + (1, 3), dtype=acc.dtype, device=dev),
+                    torch.cumsum(torch.where(vmask[..., None], acc, 0.0),
                                  dim=-2)], dim=-2)
     np3 = next_pos[..., None].expand(next_pos.shape + (3,))
     sums = torch.gather(cs, -2, np3) - cs[..., :N, :]

@@ -21,7 +21,7 @@ from lins_tpu_torch.mapping.mapper import (LinsMapper, imu_roll_pitch,
 from lins_tpu_torch.odometry.estimator import STATUS_RUNNING, LinsOdometry
 from lins_tpu_torch.utils.lazy import LazyRows, to_numpy
 
-__all__ = ["LinsSlam", "imu_roll_pitch", "run_sequence"]
+__all__ = ["LinsSlam", "ate_rmse", "imu_roll_pitch", "run_sequence"]
 
 
 class LinsSlam:
@@ -202,3 +202,19 @@ def run_sequence(slam: LinsSlam, data: dict, n_scans: int | None = None):
             imu_i += 1
         slam.add_scan(t_scan, data["scans_xyz"][k], data["scans_n"][k])
     return slam
+
+
+def ate_rmse(est_pos: np.ndarray, gt_pos: np.ndarray,
+             align_frame: tuple | None = None) -> float:
+    """ATE RMSE with no fit: the ground truth put into the estimator's
+    world frame (the first processed scan's end pose, `align_frame` = (R0,
+    p0)) when given, then compared over the common length.  Host numpy.
+    `utils/trajectory.ate` fits the frames (Umeyama) instead."""
+    if align_frame is not None:
+        R0, p0 = align_frame
+        gt = (np.asarray(R0).T @ (gt_pos - p0).T).T
+    else:
+        gt = gt_pos
+    m = min(len(est_pos), len(gt))
+    err = np.linalg.norm(est_pos[:m] - gt[:m], axis=1)
+    return float(np.sqrt(np.mean(err ** 2)))

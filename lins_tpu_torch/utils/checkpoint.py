@@ -25,16 +25,23 @@ from lins_tpu_torch.utils.lazy import to_numpy
 _FORMAT = 2
 
 
-def _leaves(tree):
-    """The tensor leaves of a state container, in JAX's flattening order;
-    None holds no leaf."""
+def _named_leaves(tree, name=""):
+    """(field path, leaf) of each tensor leaf of a state container, in
+    JAX's flattening order; None holds no leaf.  The path joins NamedTuple
+    field names, dict keys and tuple indices with dots."""
     if tree is None:
         return []
-    if isinstance(tree, tuple):
-        return [x for f in tree for x in _leaves(f)]
-    if isinstance(tree, dict):
-        return [x for k in sorted(tree) for x in _leaves(tree[k])]
-    return [tree]
+    if isinstance(tree, (tuple, dict)):
+        items = (sorted(tree.items()) if isinstance(tree, dict) else
+                 zip(getattr(tree, "_fields", range(len(tree))), tree))
+        return [x for k, v in items
+                for x in _named_leaves(v, f"{name}.{k}" if name else str(k))]
+    return [(name, tree)]
+
+
+def _leaves(tree):
+    """The tensor leaves of a state container, in JAX's flattening order."""
+    return [leaf for _, leaf in _named_leaves(tree)]
 
 
 def _rebuild(tree, leaves):
@@ -58,16 +65,28 @@ def _flatten(tree, prefix, out):
 
 def _unflatten(data, prefix, template):
     """The archive's `prefix` leaves as numpy arrays in `template`'s
-    structure."""
+    structure.  Raises ValueError when the archive's leaf count or any
+    leaf's shape differs from the template's: a run whose capacities
+    differ from the saved run's cannot take its state."""
     n = int(data[f"{prefix}/__len__"])
-    expect = len(_leaves(template))
-    if n != expect:
+    named = _named_leaves(template)
+    if n != len(named):
         raise ValueError(
             f"checkpoint '{prefix}' has {n} leaves but the current state "
-            f"layout expects {expect}: an archive of an incompatible layout "
-            f"(format {_FORMAT} expected)")
-    return _rebuild(template, (np.array(data[f"{prefix}/{i}"])
-                               for i in range(n)))
+            f"layout expects {len(named)}: an archive of an incompatible "
+            f"layout (format {_FORMAT} expected)")
+    arrays = []
+    for i, (field, leaf) in enumerate(named):
+        a = np.array(data[f"{prefix}/{i}"])
+        want = tuple(np.shape(leaf))
+        if a.shape != want:
+            raise ValueError(
+                f"checkpoint leaf '{prefix}/{i}' ({field}) has shape "
+                f"{a.shape} but the current state expects {want}: the "
+                f"run's capacities (--feature-scale, max_keyframes, the "
+                f"map caps) must match the saved run's")
+        arrays.append(a)
+    return _rebuild(template, iter(arrays))
 
 
 def _load_like(data, prefix, template):

@@ -313,6 +313,52 @@ def test_select_kernel_matches_plain(cuda_device, nb, cap, C):
 
 
 @pytest.mark.cuda
+def test_select_kernel_on_fused_supercell_grid(cuda_device):
+    """K3 on a supercell grid from `build_grid_voxelized` (the reference's
+    leaf 0.4 m, m 5, cap 128, nb 8; tests/test_mapping.py:256-268) bit for
+    bit equal to its plain version, one launch through `gather_candidates`;
+    the grid's counts those of the same build on the CPU and its centroids
+    within 1e-6 m."""
+    from lins_tpu_torch.ops import grid_nn
+
+    rng = np.random.default_rng(3)
+    centers = rng.uniform(-20, 20, (40, 3))
+    pts = np.concatenate([c + rng.normal(scale=0.5, size=(30, 3))
+                          for c in centers]).astype(np.float32)
+    q = (pts[rng.integers(0, len(pts), 200)]
+         + rng.normal(scale=0.3, size=(200, 3))).astype(np.float32)
+    qv = rng.random(200) > 0.1
+    kw = dict(leaf=0.4, m=5, table=4096, cap=128, nb=8)
+    ok = np.ones(len(pts), bool)
+    grid, n_vox = grid_nn.build_grid_voxelized(
+        torch.as_tensor(pts, device=cuda_device),
+        torch.as_tensor(ok, device=cuda_device), **kw)
+    cpu, n_cpu = grid_nn.build_grid_voxelized(torch.as_tensor(pts),
+                                              torch.as_tensor(ok), **kw)
+    assert int(n_vox) == int(n_cpu) == int(grid.cnt.sum()) > 500
+    assert torch.equal(grid.cnt.cpu(), cpu.cnt)
+    assert float((grid.cells.cpu() - cpu.cells).abs().max()) <= 1e-6
+    qt = torch.as_tensor(q, device=cuda_device)
+    qvt = torch.as_tensor(qv, device=cuda_device)
+    bb = grid_nn._bucket_of(grid_nn._neighborhood(qt, grid)[0], grid.table)
+    args = (qt, qvt, bb, grid.cells, grid.cnt)
+    for first_dropped in (True, False):
+        before = select.select_candidates.launches
+        got = select.select_candidates(*args, 64, first_dropped=first_dropped)
+        assert select.select_candidates.launches == before + 1
+        want = select.select_candidates_plain(*args, 64,
+                                              first_dropped=first_dropped)
+        assert torch.equal(got[1], want[1])
+        for k in (0, 2, 3):
+            assert torch.equal(got[k].view(torch.int32),
+                               want[k].view(torch.int32))
+        assert int(want[1].sum()) > 1000
+    before = select.select_candidates.launches
+    grid_nn.gather_candidates(qt, qvt, grid, 64, True)
+    assert select.select_candidates.launches == before + 1
+
+
+@pytest.mark.cuda
 def test_select_kernel_refuses_bad_inputs(cuda_device):
     q, qv, bb, cells, cnt = _select_grid(cuda_device, 0, Q=16, nb=2, cap=8)
     with pytest.raises(TypeError, match="float32"):

@@ -3,7 +3,8 @@ greedy picking, StateEstimator.hpp:719-827, and the centroid per voxel of
 each ring's less-flat points), lins_tpu_torch against lins_tpu on the CPU:
 
   * on one VLP-16 raycast scan and one TINY scan: labels and the less-flat
-    mask exact, every feature set's `valid` and `ring` exact, sharp, flat
+    mask exact (all rings at once, and single rings through
+    `extract_ring`), every feature set's `valid` and `ring` exact, sharp, flat
     and less-sharp coordinates exact, less-flat centroids within 1e-9 m in
     float64; in float32 the port's centroids within 1e-5 m of float64,
     where the reference's float32 prefix-sum differences lose up to
@@ -128,6 +129,25 @@ def test_extract_rings(scan, dtype):
     lab = np.asarray(want_lab)
     assert (lab == 2).sum() > 4 and (lab == 1).sum() > 4
     assert (lab == -1).sum() > 4
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_extract_ring(scan, dtype):
+    """`extract_ring` on single rings (the first, a middle and the last)
+    equals the reference's `extract_ring` on the same ring."""
+    jcfg, seg, _, _ = scan
+    seg = _as(seg, dtype)
+    want_lab, want_lf = _ref_rings(_jseg(seg), jcfg)
+    tcfg = SlamConfig.from_dict(jcfg.to_dict())
+    L = seg.rng.shape[0]
+    for i in (0, L // 2, L - 1):
+        ring = {k: _t(getattr(seg, k)[i])
+                for k in ("rng", "col", "ground", "valid", "count")}
+        lab, lf = tF.extract_ring(ring, tcfg)
+        assert lab.shape == seg.rng.shape[1:] and lab.dtype == torch.int32
+        np.testing.assert_array_equal(lab.numpy(), np.asarray(want_lab[i]))
+        np.testing.assert_array_equal(lf.numpy(), np.asarray(want_lf[i]))
+    assert (np.asarray(want_lab)[[0, L // 2, L - 1]] != 0).sum() > 4
 
 
 def test_voxel_downsample_ring_float64(scan):

@@ -5,10 +5,13 @@ against lins_tpu on the CPU:
     (with and without orientations) on the same arrays;
   * `MetricsLog` JSON lines equal apart from the wall time; `write_ply`
     byte for byte;
+  * `ate_rmse` with and without the frame alignment;
   * on one handed-over TINY state: `export_global_map` the same point set;
     a checkpoint written by the reference's `save_state` loads with the
     port's `load_state` into the state `load_numpy_state` gives; the
-    port's own save and load round-trip;
+    port's own save and load round-trip; a checkpoint of a TINY run loaded
+    with doubled feature capacities or another `max_keyframes` raises
+    ValueError;
   * a TINY split run (save at scan 20, load into a fresh pipeline, go on to
     scan 28) against the continuous run, as
     tests/test_slam_integration.py::TestCheckpointResume holds the
@@ -25,12 +28,15 @@ from lins_tpu.config import TINY
 from lins_tpu.datasets import synthetic as jsyn
 from lins_tpu.mapping import mapper as jmapper
 from lins_tpu.slam import LinsSlam as JSlam
+from lins_tpu.slam import ate_rmse as j_ate_rmse
 from lins_tpu.slam import run_sequence as j_run
 from lins_tpu.utils import checkpoint as jckpt
 from lins_tpu.utils import metrics as jmetrics
 from lins_tpu.utils import trajectory as jtraj
+from lins_tpu_torch import run_slam as trunner
 from lins_tpu_torch.config import SlamConfig
 from lins_tpu_torch.slam import LinsSlam as TSlam
+from lins_tpu_torch.slam import ate_rmse as t_ate_rmse
 from lins_tpu_torch.slam import run_sequence as t_run
 from lins_tpu_torch.utils import checkpoint as tckpt
 from lins_tpu_torch.utils import metrics as tmetrics
@@ -91,6 +97,27 @@ def test_associate_ate_rpe(seed):
     for got, want in zip(ttraj.umeyama_align(p, gt, with_scale=True),
                          jtraj.umeyama_align(p, gt, with_scale=True)):
         np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("aligned", [False, True])
+def test_ate_rmse(aligned):
+    """The no-fit ATE over trajectories of different lengths, with the
+    ground truth given in another world frame (R0, p0) and put into the
+    estimator's, or given in the estimator's frame."""
+    _, p, _ = _traj(5)
+    rng = np.random.default_rng(6)
+    gt = p + rng.normal(scale=0.05, size=p.shape)
+    frame = None
+    if aligned:
+        R0, _ = np.linalg.qr(rng.normal(size=(3, 3)))
+        R0 *= np.linalg.det(R0)
+        frame = (R0, rng.normal(size=3))
+        gt = gt @ R0.T + frame[1]
+    got = t_ate_rmse(p[:33], gt, frame)
+    assert got == j_ate_rmse(p[:33], gt, frame)
+    assert 0.05 < got < 0.15
+    if aligned:
+        assert t_ate_rmse(p[:33], gt) > 1.0
 
 
 def test_metrics_log(tmp_path):
@@ -235,6 +262,43 @@ def test_own_checkpoint_round_trip(jrun, tmp_path):
     _assert_tree_equal(dst.mapper.state, src.mapper.state, "mapper_state")
     assert dst.mapper.last_loop_time == 7.5
     assert (dst.odometry.status, dst.odometry.time) == (jo.status, jo.time)
+
+
+@pytest.fixture(scope="module")
+def tiny_ckpt(data, tmp_path_factory):
+    """The port's checkpoint of a TINY run saved at scan 8."""
+    path = str(tmp_path_factory.mktemp("ckpt") / "tiny.npz")
+    s = t_run(_tslam(), data, 9)
+    tckpt.save_state(path, s.odometry, s.mapper)
+    return path
+
+
+def _doubled_capacities():
+    """TCFG under the runner's `--feature-scale 2` transform."""
+    args = trunner.build_parser().parse_args(
+        ["--preset", "tiny", "--synthetic", "gentle", "--feature-scale",
+         "2"])
+    return trunner.configure(args).replace(
+        loop_attempts=JCFG.loop_attempts, max_keyframes=JCFG.max_keyframes)
+
+
+@pytest.mark.parametrize("change,leaf", [
+    ("feature_scale", r"'last_surf/0' \(ring\) has shape \(1536,\) but "
+     r"the current state expects \(3072,\)"),
+    ("max_keyframes", r"'mapper_state/\d+' \(store\.[a-z_]+\) has shape "
+     r"\(16,")], ids=["feature_scale", "max_keyframes"])
+def test_checkpoint_other_capacities_refused(tiny_ckpt, change, leaf):
+    """A checkpoint loads only into a state of its own capacities: with
+    twice the feature capacities (`--feature-scale 2`) or another
+    `max_keyframes`, `load_state` raises ValueError naming the leaf and
+    both shapes, instead of a crash at the next scan."""
+    cfg = (_doubled_capacities() if change == "feature_scale"
+           else TCFG.replace(max_keyframes=32))
+    assert cfg != TCFG
+    slam = TSlam(cfg, dtype=torch.float64, device="cpu", **MAP_KW)
+    with pytest.raises(ValueError, match=leaf) as e:
+        tckpt.load_state(tiny_ckpt, slam.odometry, slam.mapper)
+    assert "capacities" in str(e.value) and "max_keyframes" in str(e.value)
 
 
 def test_export_global_map(jrun, tmp_path):
