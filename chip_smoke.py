@@ -66,16 +66,20 @@ Phases, in order; any failure exits non-zero:
                  build_grid_voxelized) over the raw window points at the
                  last keyframe at the mapper's grid geometry: its voxels
                  the voxel map build's slot for slot and voxel_downsample's
-                 count, its centroids within 1e-4 m of the float64 means
-                 (the float32 builds' error logged); K3 through
+                 count, the centroids of all three within 1e-4 m of the
+                 float64 means; K3 through
                  gather_candidates on it (one launch, counted with K3's)
                  bit for bit against its plain version and its kept
-                 distances against the voxel map grid's within the
-                 centroids' shift; K3 on a supercell grid (leaf 0.4 m, m
+                 distances within 1e-5 relative of the voxel map grid's;
+                 K3 on a supercell grid (leaf 0.4 m, m
                  5, cap 128) and the dense corner cell (216 voxels, cap
                  224); grid_knn against top_k_nn under the 1 m gate (rtol
                  1e-3, atol 2e-3, >= 50 queries) and a CPU float64 copy;
-                 build and K3 times
+                 build and K3 times; then the incremental window map (its
+                 running sums added and subtracted in float32 since the
+                 last compaction rebuild): every live slot's voxel and count
+                 those of the window's points, its centroid within 1e-4 m
+                 of their float64 mean
      path V      bench.py's main cell: the same with loop attempts on, over
                  the same 70 scans (no revisit, so no loop is found, but every
                  attempt's alignment is computed and selected on the card):
@@ -117,7 +121,11 @@ Phases, in order; any failure exits non-zero:
                  past the ring's wrap, sharded over 4 parts of the card,
                  whose assemble_local_map, rebuild_window and loop_clouds
                  across each seam and the wrap equal the unsharded ones
-                 bit for bit
+                 bit for bit; then the map builders' centroids within
+                 1e-4 m of the float64 means of their voxels: the loop
+                 submap and the current cloud of loop_clouds at path H's
+                 final loop candidate, and global_map_points (the runner's
+                 global map) on path H-sparse's final state
      multi-stream  parallel/replay.make_sharded_slam_replay on a one-card
                  mesh: 4 distinct VLP-16 streams (the gentle trajectory at
                  four speeds) in path V's config, 6 streamed + 32 scans
@@ -237,12 +245,14 @@ DIST_TOL_M = 1e-5
 # against each stream's own LinsSlam chunk in the same process
 STREAM_SPEEDS = (1.2, 1.5, 1.8, 2.1)
 STREAM_TOL_M = 1e-4
-# the fused voxel-grid build on the window path's final map: centroids
-# against the voxel map's and voxel_downsample's (float32 prefix sums),
-# K3's kept distances on it against the voxel map grid's; grid_knn against
-# brute force under the 1 m gate at the reference's limits
-# (tests/test_mapping.py:84-86) on at least KNN_MIN_GATED queries, and the
-# card's float32 against a CPU float64 copy
+# the fused voxel-grid build on the window path's final map: the centroids
+# of every map builder (all sum their runs in float64) against the float64
+# means of their voxels, K3's kept distances on it against the voxel map
+# grid's; grid_knn against brute force under the 1 m gate at the
+# reference's limits (tests/test_mapping.py:84-86) on at least
+# KNN_MIN_GATED queries, and the card's float32 against a CPU float64 copy.
+# GRID_CENT_TOL_M also holds the incremental window map, the loop clouds
+# and the global map
 GRID_CENT_TOL_M = 1e-4
 GRID_D2_RTOL = 1e-5
 KNN_RTOL, KNN_ATOL, KNN_MIN_GATED = 1e-3, 2e-3, 50
@@ -1198,9 +1208,10 @@ def _grid_centroids(grid, leaf):
     return c[o], v[o]
 
 
-def _voxel_means64(pts, ok, leaf):
+def _voxel_means64(pts, ok, leaf, counts=False):
     """The voxels of the valid points in lexicographic order and their
-    means, summed in float64 by voxel (no prefix sums)."""
+    means, summed in float64 by voxel (no prefix sums); with `counts`, also
+    each voxel's point count."""
     import torch
 
     from lins_tpu_torch.frontend.projection import div_const
@@ -1211,7 +1222,23 @@ def _voxel_means64(pts, ok, leaf):
     sums = torch.zeros((len(uv), 3), dtype=torch.float64, device=p.device)
     sums.index_add_(0, inv, p.double())
     n = torch.bincount(inv, minlength=len(uv))
-    return uv, sums / n[:, None]
+    return (uv, sums / n[:, None]) + ((n,) if counts else ())
+
+
+def _downsample_err(what, got, cap, pts, ok, leaf):
+    """The valid centroids `got` (n, 3) of a `voxel_downsample` output
+    (compacted in the lexicographic order of their voxels, the lowest
+    ranks kept under its cap) against the float64 means of the voxels of
+    `pts[ok]`: as many as the voxels (or the cap), each within
+    GRID_CENT_TOL_M.  Returns the largest error."""
+    n = len(got)
+    _, tc = _voxel_means64(pts, ok, leaf)
+    e = float((got.double() - tc[:n]).norm(dim=1).max()) if n else 0.0
+    check(n == min(len(tc), cap) > 0 and e <= GRID_CENT_TOL_M,
+          f"{what}: {n} centroids of {len(tc)} voxels ({int(ok.sum())} "
+          f"points, leaf {leaf}, cap {cap}), the largest {e:.3e} m from "
+          f"the float64 means (gate {GRID_CENT_TOL_M} m)")
+    return e
 
 
 def _kept_d2(query, cand, cand_ok):
@@ -1236,10 +1263,15 @@ def phase_grid_voxelized(slam, smi):
     voxel map grid's; K3 on a supercell grid (the reference's leaf 0.4 m,
     m 5, cap 128) and on the reference's dense corner cell; `grid_knn`
     against `top_k_nn` by brute force under the 1 m gate and against a
-    CPU float64 copy.  Returns (K3 launches of the `gather_candidates`
-    calls, the largest difference of K3's kept distances from its plain
-    version's, the largest centroid error of the float32 builds against
-    the float64 means)."""
+    CPU float64 copy.  The centroids of the voxel map's build and of
+    `voxel_downsample` are held to the float64 means too, as the fused
+    build's are (all three sum their runs in float64), and so K3's kept
+    distances on the fused grid to the voxel map grid's within
+    GRID_D2_RTOL relative.  Returns (K3 launches of the
+    `gather_candidates` calls, the largest difference of K3's kept
+    distances from its plain version's, the largest centroid error of the
+    voxel map's build and `voxel_downsample` against the float64
+    means)."""
     import torch
 
     from lins_tpu_torch.frontend.projection import div_const
@@ -1301,12 +1333,11 @@ def phase_grid_voxelized(slam, smi):
         e_vm = float((vm_c.double() - tc).norm(dim=1).max())
         e_vd = float((vd[:n_vd].double() - tc).norm(dim=1).max())
         cent_err = max(cent_err, e_vm, e_vd)
-        check(torch.equal(v, tv) and e_f <= GRID_CENT_TOL_M,
-              f"the fused {what} grid's centroids (float64 run sums) within "
-              f"{GRID_CENT_TOL_M} m of their voxels' float64 means "
-              f"({e_f:.3e} m); the float32 prefix sums of the voxel map's "
-              f"build and of voxel_downsample err by {e_vm:.3e} and "
-              f"{e_vd:.3e} m")
+        check(torch.equal(v, tv) and max(e_f, e_vm, e_vd) <= GRID_CENT_TOL_M,
+              f"the {what} centroids (float64 run sums) within "
+              f"{GRID_CENT_TOL_M} m of their voxels' float64 means: the "
+              f"fused grid's {e_f:.3e} m, the voxel map build's {e_vm:.3e} "
+              f"m, voxel_downsample's {e_vd:.3e} m")
         _reset_counts()
         got = grid_nn.gather_candidates(q, q_ok, fused, C, True)
         torch.cuda.synchronize()
@@ -1317,24 +1348,22 @@ def phase_grid_voxelized(slam, smi):
         k_args = _k3_args(q, q_ok, fused)
         k3_err = max(k3_err, _k3_equal(k_args, C, f"the fused {what} grid "
                                        f"({int(q_ok.sum())} valid queries)"))
-        # kept distances against the voxel map grid's: the same voxels, so
-        # each sorted kept distance (an order statistic) moves at most as
-        # far as the farthest centroid moved, e = |fused - voxel map|, plus
-        # float32 rounding
+        # kept distances against the voxel map grid's: the same voxels and
+        # both centroids rounded once from float64 means, so each sorted
+        # kept distance equals the voxel map grid's within GRID_D2_RTOL
         want = grid_nn.gather_candidates(q, q_ok, vm.as_grid(), C, True)
         d_f, d_v = _kept_d2(q, got[0], got[1]), _kept_d2(q, want[0], want[1])
         fin = torch.isfinite(d_v)
         e = float((c - vm_c).norm(dim=1).max())
         gap = (d_f - d_v).abs()[fin]
         d = torch.maximum(d_f, d_v)[fin]
-        slack = 2 * d.sqrt() * e + e * e + GRID_D2_RTOL * d
         check(torch.equal(fin, torch.isfinite(d_f))
-              and bool((gap <= slack).all()),
+              and bool((gap <= GRID_D2_RTOL * d).all()),
               f"K3's kept distances on the fused {what} grid equal the voxel "
-              f"map grid's, {int(fin.sum())} kept: within 2 sqrt(d) e + e^2 "
-              f"+ {GRID_D2_RTOL} d, e = {e:.3e} m the largest centroid "
-              f"difference (largest difference {float(gap.max()):.3e}, "
-              f"relative {float((gap / d.clamp(min=1e-12)).max()):.3e})")
+              f"map grid's, {int(fin.sum())} kept: within {GRID_D2_RTOL} d "
+              f"(largest difference {float(gap.max()):.3e}, relative "
+              f"{float((gap / d.clamp(min=1e-12)).max()):.3e}; the largest "
+              f"centroid difference {e:.3e} m)")
         k3_times(k_args, C, f"the fused {what} grid", {})
         k3_times(_k3_args(q, q_ok, vm.as_grid()), C,
                  f"the voxel map's {what} grid", {})
@@ -1427,6 +1456,133 @@ def phase_grid_voxelized(slam, smi):
         f"on {smi}")
     torch.cuda.synchronize()
     return launches, k3_err, cent_err
+
+
+def phase_incremental_map(slam, smi):
+    """The window path's incremental voxel maps on its final state, before
+    its next compaction rebuild: `VoxelMap.vsum` and `vcnt` are added and
+    subtracted at every keyframe insert and eviction since the last build,
+    `vsum` in the working dtype.  Every live slot's voxel and count must be
+    those of the points of the keyframes in the window (`lmap.sel`), and
+    its centroid, `cells` and vsum / vcnt both, within GRID_CENT_TOL_M of
+    their float64 mean.  The run fills less than its window, so nothing
+    was evicted: the same check then holds a copy of the maps from which
+    the older half of the window's keyframes are evicted (their stored
+    deltas subtracted, as the inserts of a full window do).  Returns the
+    largest centroid error."""
+    import torch
+
+    from lins_tpu_torch.mapping import keyframes as kfm
+    from lins_tpu_torch.mapping.local_map import _to_world
+    from lins_tpu_torch.ops.voxel_map import apply_delta
+    from lins_tpu_torch.utils.tree import tree_map
+
+    log("== 5. the incremental window map against float64 means (the "
+        "window path's final state)")
+    mapper = slam.mapper
+    lm, store, gp = mapper.state.lmap, mapper.state.store, mapper.gp
+    dtype = lm.corner_vm.cells.dtype
+    slots = kfm.slot_of(store, torch.clamp(lm.sel, min=0)).long()
+    p, q = store.pos[slots], store.quat[slots]
+
+    def world(cloud, valid, keep):
+        w, v = _to_world(kfm.take_rows(cloud, slots).to(dtype),
+                         kfm.take_rows(valid, slots), p, q, keep[:, None])
+        return w.reshape(-1, 3), v.reshape(-1)
+
+    def hold(what, cvm, svm, keep):
+        """cvm and svm against the float64 means of the points of the
+        window rows `keep`; returns the largest error."""
+        cw, cv = world(store.corner, store.corner_valid, keep)
+        sw, sv = world(store.surf, store.surf_valid, keep)
+        ow, ov = world(store.outlier, store.outlier_valid, keep)
+        err = 0.0
+        for ch, vm, pts, valid, leaf in (
+                ("corner", cvm, cw, cv, gp.corner_leaf),
+                ("surf", svm, torch.cat([sw, ow]), torch.cat([sv, ov]),
+                 gp.surf_leaf)):
+            live = vm.vcnt > 0
+            vox = vm.vcoord.transpose(1, 2)[live]
+            o = _lex(vox)
+            cells = vm.cells.transpose(1, 2)[live][o].double()
+            ratio = (vm.vsum.double() / vm.vcnt.clamp(min=1)[:, None, :]
+                     ).transpose(1, 2)[live][o]
+            tv, tc, tn = _voxel_means64(pts, valid, leaf, counts=True)
+            same = (len(tv) == len(vox) and torch.equal(vox[o], tv)
+                    and torch.equal(vm.vcnt[live][o].long(), tn))
+            e_c = float((cells - tc).norm(dim=1).max()) if same else math.inf
+            e_r = float((ratio - tc).norm(dim=1).max()) if same else math.inf
+            err = max(err, e_c, e_r)
+            check(same and max(e_c, e_r) <= GRID_CENT_TOL_M,
+                  f"the incremental {ch} map, {what} ({int(keep.sum())} "
+                  f"keyframes in it, {len(vox)} live voxels, the points' "
+                  f"{len(tv)}): voxels and counts equal; centroids within "
+                  f"{GRID_CENT_TOL_M} m of the float64 means: cells "
+                  f"{e_c:.3e} m, vsum / vcnt {e_r:.3e} m ({vm.vsum.dtype}) "
+                  f"on {smi}")
+        return err
+
+    ok = lm.sel >= 0
+    err = hold(f"{int(lm.pushes)} inserts since the last rebuild",
+               lm.corner_vm, lm.surf_vm, ok)
+    rows = torch.nonzero(ok).flatten()
+    old = rows[torch.argsort(lm.sel[rows])][:len(rows) // 2]
+    cvm, svm = lm.corner_vm, lm.surf_vm
+    for r in old.tolist():
+        cvm = apply_delta(cvm, tree_map(lambda a: a[r], lm.dc), -1)
+        svm = apply_delta(svm, tree_map(lambda a: a[r], lm.dsf), -1)
+    gone = torch.zeros_like(ok)
+    gone[old] = True
+    err = max(err, hold(f"then the {len(old)} oldest evicted", cvm, svm,
+                        ok & ~gone))
+    torch.cuda.synchronize()
+    return err
+
+
+def phase_map_means(h_slam, hs_slam, smi):
+    """The map builders outside the mapping step against the float64 means
+    of their voxels: the loop submap and the current cloud of
+    `loop_clouds` at path H's final loop candidate, and
+    `global_map_points` (the runner's global map, leaf 0.4 m) on path
+    H-sparse's final state, each centroid within GRID_CENT_TOL_M.  Returns
+    the largest error of each."""
+    import torch
+
+    from lins_tpu_torch.graph import loop_closure as lc
+    from lins_tpu_torch.utils import checkpoint as ck
+
+    log("== 6. the loop clouds and the global map against float64 means")
+    m = h_slam.mapper
+    cfg, store = m.cfg, m.state.store
+    t = torch.full((), float(h_slam.trajectory[-1][0]), dtype=m.dtype,
+                   device=m.device)
+    cur = torch.clamp(store.count - 1, min=0)
+    idx, found = lc.detect_loop(store, cur, t, cfg)
+    check(bool(found), f"the final keyframe {int(cur)} of path H has a loop "
+          f"candidate ({int(idx)})")
+    submap, sub_ok, cloud, cloud_ok = lc.loop_clouds(
+        store, idx, cur, t, cfg, m.submap_cap, m.cloud_cap)
+    sub_xyz, sub_in, cloud_w, cloud_in = lc.loop_points(store, idx, cur, t,
+                                                        cfg)
+    e_sub = _downsample_err(f"path H's loop submap around keyframe "
+                            f"{int(idx)}", submap[sub_ok], len(sub_ok),
+                            sub_xyz, sub_in, cfg.map_surf_leaf)
+    e_cloud = _downsample_err(f"path H's current cloud (keyframe "
+                              f"{int(cur)})", cloud[cloud_ok],
+                              len(cloud_ok), cloud_w, cloud_in,
+                              cfg.map_surf_leaf)
+    leaf, cap = 0.4, 1 << 20
+    got = torch.as_tensor(ck.global_map_points(hs_slam.mapper, leaf, cap),
+                          device=m.device)
+    xyz, ok = ck.global_map_cloud(hs_slam.mapper)
+    e_map = _downsample_err(
+        f"global_map_points on path H-sparse's final state "
+        f"({int(hs_slam.mapper.state.store.count)} keyframes)", got,
+        min(cap, xyz.shape[0]), xyz, ok, leaf)
+    log(f"  the largest centroid error from the float64 means: loop submap "
+        f"{e_sub:.3e} m, current cloud {e_cloud:.3e} m, global map "
+        f"{e_map:.3e} m (gate {GRID_CENT_TOL_M} m) on {smi}")
+    return dict(submap=e_sub, cloud=e_cloud, global_map=e_map)
 
 
 def _k6_equal(x, C, what):
@@ -3203,7 +3359,8 @@ def main():
     odo = phase_odometry(cfg, data)
     mp = phase_mapping(cfg_map, data, odo["ps"])
     k3 = phase_k3_real(mp["slam"], smi)
-    grid_k3, grid_err, f32_err = phase_grid_voxelized(mp["slam"], smi)
+    grid_k3, grid_err, build_err = phase_grid_voxelized(mp["slam"], smi)
+    inc_err = phase_incremental_map(mp["slam"], smi)
     k3["max_abs_err"] = max(k3["max_abs_err"], k3_err, grid_err)
     pv = phase_path_v(cfg_v, data)
     ph = phase_path_h(cfg_h, data_h)
@@ -3213,6 +3370,7 @@ def main():
     phs = phase_path_hs(cfg_hs, data_h)
     phss = phase_path_hs_shard(cfg_hs, data_h, phs)
     n_seams = phase_store_seams(cfg_hs)
+    map_err = phase_map_means(ph["slam"], phs["slam"], smi)
     pms = phase_multi_stream(cfg_v)
     runs = dict(odometry=odo, window=mp, V=pv, H=ph, R=pr, HR=phr, E=pe,
                 HS=phs, HSS=phss, MS=pms)
@@ -3313,9 +3471,13 @@ def main():
     log("    ATE in the estimator's frame, no fit (slam.ate_rmse): "
         + ", ".join(f"{name} {runs[name]['ate_no_fit']:.4f} m"
                     for name in ("odometry", "V", "H", "HR")))
-    log(f"    fused voxel grid: the float32 prefix sums of the voxel map's "
-        f"build and voxel_downsample err by up to {f32_err:.3e} m on the "
-        f"window map")
+    log(f"    map builders (float64 run sums), the largest centroid error "
+        f"from the float64 means (gate {GRID_CENT_TOL_M} m): the voxel map's "
+        f"build and voxel_downsample on the window map {build_err:.3e} m; "
+        f"the incremental window map {inc_err:.3e} m; path H's loop submap "
+        f"{map_err['submap']:.3e} m, its current cloud "
+        f"{map_err['cloud']:.3e} m; the global map of path H-sparse "
+        f"{map_err['global_map']:.3e} m")
     log(f"    distributed solves vs one device: dense {dist['dense']:.2e} m, "
         f"sparse {dist['sparse']:.2e} m")
     log(f"    multi-stream: {pms['rate']:.3f} scans/s batched against "

@@ -359,9 +359,11 @@ def voxel_downsample_ring(xyz, rel, mask, leaf):
     reference package's `voxel_downsample_ring` does per ring.
 
     The run sums come from prefix-sum differences, as in the reference,
-    but the prefix sums are taken in float64 whatever the dtype: in float32
-    a prefix over a ring of points 30 m out reaches about 5e4 m and each
-    difference loses millimetres (PERF.md §4)."""
+    but in float64 whatever the dtype (`ops/voxel.run_sums`, a recorded
+    departure): in float32 a prefix over a ring of points 30 m out reaches
+    about 5e4 m and each difference loses millimetres (PERF.md §4)."""
+    from lins_tpu_torch.ops.voxel import run_sums
+
     L, S = mask.shape
     dev = xyz.device
     h = torch.where(mask, _voxel_hash32(xyz, leaf),
@@ -374,22 +376,15 @@ def voxel_downsample_ring(xyz, rel, mask, leaf):
     first = torch.ones((L, 1), dtype=torch.bool, device=dev)
     start = torch.cat([first, hs[:, 1:] != hs[:, :-1]], dim=1) & ms
 
-    def prefix(x):
-        z = torch.zeros_like(x[:, :1])
-        return torch.cat([z, torch.cumsum(x, dim=1)], dim=1)
-
-    cx = prefix(torch.where(ms[..., None], xs, 0.0).double())
-    cr = prefix(torch.where(ms, rs, 0.0).double())
-    cn = prefix(ms.to(torch.int32))
     # the end of the run at i: the first run start after i (or S), by a
     # reverse cumulative minimum
     next_start = torch.cat([start[:, 1:], first], dim=1)
     pos = torch.where(next_start, torch.arange(1, S + 1, device=dev), S)
     next_pos = torch.flip(torch.cummin(torch.flip(pos, [1]), dim=1)[0], [1])
-    n_run = torch.clamp(cn.gather(1, next_pos) - cn[:, :S], min=1)
-    cent = ((cx.gather(1, next_pos[..., None].expand(L, S, 3)) - cx[:, :S])
-            / n_run[..., None]).to(xyz.dtype)
-    cent_rel = ((cr.gather(1, next_pos) - cr[:, :S]) / n_run).to(rel.dtype)
+    # the sweep time rides as a fourth column of the same sums (the cat
+    # takes the wider dtype, and each mean is rounded once to its own)
+    mean = run_sums(torch.cat([xs, rs[..., None]], -1), ms, next_pos)[2]
+    cent, cent_rel = mean[..., :3].to(xyz.dtype), mean[..., 3].to(rel.dtype)
     return (torch.where(start[..., None], cent, 0.0),
             torch.where(start, cent_rel, 0.0), start)
 

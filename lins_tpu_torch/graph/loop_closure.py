@@ -151,13 +151,14 @@ def icp_align(src, src_valid, dst, dst_valid, iters: int = 40,
     return R, t, fitness
 
 
-def loop_clouds(store: kf.KeyframeStore, idx, cur, cur_time,
-                cfg: SlamConfig, submap_cap: int, cloud_cap: int):
-    """The inputs of one loop candidate's alignment, in the world: the
-    submap of the ±history_keyframe_search_num ids around the candidate
-    that are live and from the old pass (older than the time gate), and the
-    current keyframe's cloud at its current estimate, both voxel-downsampled.
-    Returns (submap, submap_ok, cloud, cloud_ok)."""
+def loop_points(store: kf.KeyframeStore, idx, cur, cur_time,
+                cfg: SlamConfig):
+    """The world-frame points of one loop candidate's alignment, before
+    the voxel filter: the surf and corner clouds of the
+    ±history_keyframe_search_num ids around the candidate that are live and
+    from the old pass (older than the time gate), and the current
+    keyframe's at its current estimate.  Returns (sub_xyz, sub_ok, cloud,
+    cloud_ok)."""
     dev = store.pos.device
     K = store.capacity
     n_half = cfg.history_keyframe_search_num
@@ -176,8 +177,6 @@ def loop_clouds(store: kf.KeyframeStore, idx, cur, cur_time,
     sub_ok = torch.cat([
         (take_rows(store.surf_valid, win_c) & keep).reshape(-1),
         (take_rows(store.corner_valid, win_c) & keep).reshape(-1)])
-    submap, submap_ok = voxel_downsample(sub_xyz, sub_ok, cfg.map_surf_leaf,
-                                         submap_cap)
 
     cur_i = torch.remainder(torch.clamp(cur, min=0), K)
     p_c, q_c = take_row(store.pos, cur_i), take_row(store.quat, cur_i)
@@ -186,6 +185,18 @@ def loop_clouds(store: kf.KeyframeStore, idx, cur, cur_time,
     cloud_ok = torch.cat([take_row(store.surf_valid, cur_i),
                           take_row(store.corner_valid, cur_i)])
     cloud_w = so3.quat_rotate(q_c[None, :], cloud) + p_c[None, :]
+    return sub_xyz, sub_ok, cloud_w, cloud_ok
+
+
+def loop_clouds(store: kf.KeyframeStore, idx, cur, cur_time,
+                cfg: SlamConfig, submap_cap: int, cloud_cap: int):
+    """The inputs of one loop candidate's alignment, in the world: the
+    submap and the current keyframe's cloud of `loop_points`, both
+    voxel-downsampled.  Returns (submap, submap_ok, cloud, cloud_ok)."""
+    sub_xyz, sub_ok, cloud_w, cloud_ok = loop_points(store, idx, cur,
+                                                     cur_time, cfg)
+    submap, submap_ok = voxel_downsample(sub_xyz, sub_ok, cfg.map_surf_leaf,
+                                         submap_cap)
     cloud_ds, cloud_ds_ok = voxel_downsample(cloud_w, cloud_ok,
                                              cfg.map_surf_leaf, cloud_cap)
     return submap, submap_ok, cloud_ds, cloud_ds_ok

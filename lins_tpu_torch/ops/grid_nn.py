@@ -101,17 +101,14 @@ def build_grid_voxelized(pts: torch.Tensor, valid: torch.Tensor,
     leaf·m, so voxels never straddle cells; m must make leaf·m >= 1 m
     (nb=27) or >= 2 m (nb=8 supercells) for the 1 m gate's coverage.
 
-    Departure from the reference: the run sums are float64 prefix sums
-    (the reference's are in the points' dtype, which over a window map of
-    ~1e5 points loses digits of the centroids); centroids are rounded to
-    the points' dtype.  Returns (HashGrid, n_voxels), n_voxels the voxel
-    count (0-dim int32)."""
+    Departure from the reference, as in every builder of the port: the
+    run sums are float64 prefix sums (`voxel.run_sums`), the centroids
+    rounded once to the points' dtype.  Returns (HashGrid, n_voxels),
+    n_voxels the voxel count (0-dim int32)."""
     from lins_tpu_torch.ops.voxel_map import _rank_in_bucket_run, _runs
 
     dev = pts.device
-    key_s, _, _, vstart, sums, n_run = _runs(pts, valid, leaf, m, table,
-                                              sum_dtype=torch.float64)
-    cent = (sums / torch.clamp(n_run, min=1)[:, None]).to(pts.dtype)
+    key_s, _, _, vstart, _, _, cent = _runs(pts, valid, leaf, m, table)
     bkt_s = torch.div(key_s, m * m * m, rounding_mode="floor").to(
         torch.int64)
     slot = _rank_in_bucket_run(bkt_s, vstart)

@@ -5,7 +5,8 @@ lidar_mapping_node.cpp:283-291).
 Centroid per voxel over a masked point set, all static shapes: a stable
 lexicographic sort by the exact integer voxel coordinates, centroids from
 cumulative-sum differences at run starts, valid centroids compacted to the
-front.
+front.  The cumulative sums are float64 in every builder of the port
+(`run_sums`), a recorded departure from the reference.
 """
 from __future__ import annotations
 
@@ -68,6 +69,38 @@ def reverse_cummin(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     return torch.cummin(x.flip(dim), dim).values.flip(dim)
 
 
+def run_sums(x: torch.Tensor, keep: torch.Tensor, next_pos: torch.Tensor):
+    """Run sums, counts and means of the rows of a sorted (..., N, C)
+    block: row i gets those of the kept rows in [i, next_pos[i]), next_pos
+    (..., N) int64 the end of row i's run (the values are read at run
+    starts).
+
+    Departure from the reference, which takes the prefix sums in the
+    points' dtype (in float32 a prefix over a window map reaches ~1e5 m
+    and each difference loses centroid digits): the prefix sums are
+    float64, scanned along the innermost axis of a contiguous (..., C, N)
+    copy, and each mean is divided in float64 and rounded once to x's
+    dtype.  Counts are int32 prefix sums.  No float `index_add_`: its
+    order is not fixed on the card.  Returns (sums float64 (..., N, C),
+    counts int32 (..., N), means (..., N, C) in x's dtype)."""
+    N = x.shape[-2]
+    xt = torch.where(keep[..., None], x, 0.0).transpose(-1, -2).to(
+        torch.float64, memory_format=torch.contiguous_format)
+    z = torch.zeros(xt.shape[:-1] + (1,), dtype=torch.float64,
+                    device=x.device)
+    cs = torch.cat([z, torch.cumsum(xt, dim=-1)], dim=-1)
+    sums = (torch.gather(cs, -1, next_pos[..., None, :].expand(xt.shape))
+            - cs[..., :N])
+    cm = torch.cat([torch.zeros_like(next_pos[..., :1], dtype=torch.int32),
+                    torch.cumsum(keep.to(torch.int32), dim=-1,
+                                 dtype=torch.int32)], dim=-1)
+    cnt = torch.gather(cm, -1, next_pos) - cm[..., :N]
+    means = sums / torch.clamp(cnt, min=1)[..., None, :]
+    return (sums.transpose(-1, -2), cnt,
+            means.transpose(-1, -2).to(
+                x.dtype, memory_format=torch.contiguous_format))
+
+
 def voxel_downsample(xyz: torch.Tensor, mask: torch.Tensor, leaf: float,
                      cap: int | None = None):
     """Downsample a masked (N,3) cloud to voxel centroids.
@@ -87,17 +120,10 @@ def voxel_downsample(xyz: torch.Tensor, mask: torch.Tensor, leaf: float,
     ms = k[:, 0] != IMAX
     true1 = torch.ones(1, dtype=torch.bool, device=dev)
     start = torch.cat([true1, torch.any(k[1:] != k[:-1], dim=1)]) & ms
-    cx = torch.cat([torch.zeros((1, 3), dtype=xs.dtype, device=dev),
-                    torch.cumsum(torch.where(ms[:, None], xs, 0.0), dim=0)])
-    cn = torch.cat([torch.zeros(1, dtype=torch.int32, device=dev),
-                    torch.cumsum(ms.to(torch.int32), dim=0,
-                                 dtype=torch.int32)])
     nxt = torch.cat([start[1:], true1])
     pos = torch.where(nxt, torch.arange(1, N + 1, device=dev), N)
     next_pos = reverse_cummin(pos, 0)
-
-    n_run = cn[next_pos] - cn[:N]
-    cent = (cx[next_pos] - cx[:N]) / torch.clamp(n_run, min=1)[:, None]
+    cent = run_sums(xs, ms, next_pos)[2]
 
     # compact run-start centroids to the front: scatter by cumsum rank into
     # a buffer one row longer, whose last row takes the dropped rows

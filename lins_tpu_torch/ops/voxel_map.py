@@ -11,8 +11,12 @@ points inside it:
     so a revisit revives it in place;
   * centroid        = sum / count.
 A full compaction rebuild (`build_voxel_map`) bounds tombstone leak, cell
-overflow and float drift.  Voxel identity is the exact integer voxel
-coordinate triple, in the sorts and in the per-slot identity store.
+overflow and the drift of the running sums, which are added and
+subtracted in the working dtype.  The run sums of a scan's delta and of a
+build are float64 prefix sums (`voxel.run_sums`), a recorded departure
+from the reference, whose sums are in the points' dtype.  Voxel identity
+is the exact integer voxel coordinate triple, in the sorts and in the
+per-slot identity store.
 
 The reference's multi-key `lax.sort` is stable, so the stable sorts here
 give the same row order; scatters with `mode="drop"` write into a buffer
@@ -28,7 +32,7 @@ import torch
 from lins_tpu_torch.frontend.projection import div_const
 from lins_tpu_torch.ops.grid_nn import HashGrid, _bucket_of
 from lins_tpu_torch.ops.voxel import (IMAX, IMIN, lex_order, pair_key,
-                                      reverse_cummin)
+                                      reverse_cummin, run_sums)
 
 # far-away parking spot for dead/never-used slots: distances to it are
 # ~1e18 (finite in float32), above the 1e17 tombstone cutoff of the NN
@@ -98,13 +102,15 @@ def _set_dropping(base: torch.Tensor, index, value) -> torch.Tensor:
     return buf[:-1]
 
 
-def _runs(pts, valid, leaf, m, table, sum_dtype=None):
+def _runs(pts, valid, leaf, m, table):
     """Shared voxelization front half, over (..., N, 3): bucket/lid
     composite key and exact voxel coordinates, stably sorted along N.
     Returns (key_s, vox_s (..., N, 3), sentinel, run starts, run point
-    sums (..., N, 3), run point counts), the last two read at run starts.
-    The sums are prefix-sum differences in `sum_dtype` (default: the
-    points' dtype, as the reference takes them)."""
+    sums (..., N, 3), run point counts, run centroids (..., N, 3)), the
+    last three read at run starts.  The sums are differences of float64
+    prefix sums (`voxel.run_sums`; a recorded departure, the reference
+    takes them in the points' dtype), rounded once to the points' dtype,
+    as are the centroids."""
     N = pts.shape[-2]
     dev = pts.device
     m3 = m * m * m
@@ -133,24 +139,17 @@ def _runs(pts, valid, leaf, m, table, sum_dtype=None):
     ar = torch.arange(N, device=dev).expand(lead + (N,))
     next_pos = reverse_cummin(torch.where(nxt, ar + 1, N), -1)
 
-    acc = pts_s.to(sum_dtype or pts.dtype)
-    cs = torch.cat([torch.zeros(lead + (1, 3), dtype=acc.dtype, device=dev),
-                    torch.cumsum(torch.where(vmask[..., None], acc, 0.0),
-                                 dim=-2)], dim=-2)
-    np3 = next_pos[..., None].expand(next_pos.shape + (3,))
-    sums = torch.gather(cs, -2, np3) - cs[..., :N, :]
-    cm = torch.cat([torch.zeros(lead + (1,), dtype=torch.int32, device=dev),
-                    torch.cumsum(vmask.to(torch.int32), dim=-1,
-                                 dtype=torch.int32)], dim=-1)
-    cnt = torch.gather(cm, -1, next_pos) - cm[..., :N]
-    return key_s, vox_s, sentinel, vstart, sums, cnt
+    sums, cnt, cent = run_sums(pts_s, vmask, next_pos)
+    sums = sums.to(pts.dtype, memory_format=torch.contiguous_format)
+    return key_s, vox_s, sentinel, vstart, sums, cnt, cent
 
 
 def scan_delta(pts: torch.Tensor, valid: torch.Tensor, leaf: float, m: int,
                table: int) -> VoxDelta:
     """Voxelize a masked (..., N, 3) world-frame cloud into per-voxel (sum,
     cnt) runs: one sort of N rows per leading index."""
-    key_s, vox_s, _, vstart, sums, cnt = _runs(pts, valid, leaf, m, table)
+    key_s, vox_s, _, vstart, sums, cnt, _ = _runs(pts, valid, leaf, m,
+                                                  table)
     return VoxDelta(
         bucket=torch.div(key_s, m * m * m, rounding_mode="floor"),
         vox=vox_s, psum=sums, cnt=cnt, ok=vstart)
@@ -240,9 +239,8 @@ def build_voxel_map(pts: torch.Tensor, valid: torch.Tensor, leaf: float,
     fill every VoxelMap field from one sort (slots = rank of the voxel run
     within its cell bucket's run)."""
     dtype, dev = pts.dtype, pts.device
-    key_s, vox_s, sentinel, vstart, sums, cnt_run = _runs(
+    key_s, vox_s, sentinel, vstart, sums, cnt_run, cents = _runs(
         pts, valid, leaf, m, table)
-    cents = sums / torch.clamp(cnt_run, min=1)[:, None].to(dtype)
     bkt_s = torch.div(key_s, m * m * m, rounding_mode="floor")
     slot = _rank_in_bucket_run(bkt_s, vstart)
     keep = vstart & (slot < cap)

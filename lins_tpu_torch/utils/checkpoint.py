@@ -174,15 +174,14 @@ def load_state(path: str, odometry=None, mapper=None):
     return meta
 
 
-def global_map_points(mapper, leaf: float = 0.4, cap: int = 1 << 20):
-    """The keyframe map as one world-frame cloud: every live keyframe's
-    surf, corner and outlier points at its pose, voxel-filtered at `leaf`
-    on the mapper's device.  Returns host numpy (N, 3)."""
+def global_map_cloud(mapper):
+    """Every live keyframe's surf, corner and outlier points at its pose,
+    on the mapper's device, before the voxel filter: (xyz (R, 3), ok
+    (R,))."""
     import torch
 
     from lins_tpu_torch.geom import so3
     from lins_tpu_torch.mapping import keyframes as kfm
-    from lins_tpu_torch.ops.voxel import voxel_downsample
     from lins_tpu_torch.parallel.shard_map_store import unshard_store
 
     store = unshard_store(mapper.state.store)
@@ -195,8 +194,17 @@ def global_map_points(mapper, leaf: float = 0.4, cap: int = 1 << 20):
     parts = [to_world(store.surf, store.surf_valid),
              to_world(store.corner, store.corner_valid),
              to_world(store.outlier, store.outlier_valid)]
-    xyz = torch.cat([w.reshape(-1, 3) for w, _ in parts])
-    ok = torch.cat([v.reshape(-1) for _, v in parts])
+    return (torch.cat([w.reshape(-1, 3) for w, _ in parts]),
+            torch.cat([v.reshape(-1) for _, v in parts]))
+
+
+def global_map_points(mapper, leaf: float = 0.4, cap: int = 1 << 20):
+    """The keyframe map as one world-frame cloud: `global_map_cloud`
+    voxel-filtered at `leaf` on the mapper's device.  Returns host numpy
+    (N, 3)."""
+    from lins_tpu_torch.ops.voxel import voxel_downsample
+
+    xyz, ok = global_map_cloud(mapper)
     ds, ds_ok = voxel_downsample(xyz, ok, leaf, min(cap, xyz.shape[0]))
     return to_numpy(ds)[to_numpy(ds_ok)]
 
