@@ -1,0 +1,8 @@
+"""loop.ms_per_attempt.replay: the mean time of the port's `loop.attempt`
+spans in the window (detection, alignment, solve and rewrite, each
+computed whether or not it is kept).  Moves replay_scans_per_s."""
+from benchmark.layer_metrics._program import ms_per_span
+
+
+def read(trace):
+    return ms_per_span(trace, "loop.attempt")

@@ -265,7 +265,8 @@ RUNNER_SCANS = 40
 RUNNER_CKPT = 20
 RUNNER_TIMEOUT_S = 400
 RUNNER_OUTPUTS = {"trajectory.tum", "trajectory_kf.tum", "metrics.jsonl",
-                  "global_map.ply", "final_state.npz", "summary.json"}
+                  "global_map.ply", "final_state.npz", "summary.json",
+                  "spans.jsonl"}
 # the keys of the JAX package's runner's summary.json with mapping, a
 # ground truth and the state dump (run_slam.py:268-321)
 RUNNER_SUMMARY_KEYS = {"scans", "elapsed_s", "compile_s", "scans_per_sec",

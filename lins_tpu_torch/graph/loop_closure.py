@@ -28,6 +28,7 @@ from lins_tpu_torch.ops.grid_nn import build_grid
 from lins_tpu_torch.ops.lin3 import eigh_sym3x3
 from lins_tpu_torch.ops.voxel import top_k_nn, voxel_downsample
 from lins_tpu_torch.utils.device import may_stop
+from lins_tpu_torch.utils.metrics import trace_scope
 from lins_tpu_torch.utils.tree import cond
 
 
@@ -117,38 +118,41 @@ def icp_align(src, src_valid, dst, dst_valid, iters: int = 40,
     a transformation-epsilon test ends the loop (the reference's
     `while_loop`; here `iters` fixed trips with the carry frozen once done).
     fitness = mean squared correspondence distance at the result (PCL's
-    getFitnessScore, :1139-1141)."""
-    dtype, dev = src.dtype, src.device
-    tight = 6
-    decay = (final_corr / max_corr) ** (
-        1.0 / max(iters - 1 - min(tight, iters // 2), 1))
-    R = torch.eye(3, dtype=dtype, device=dev)
-    t = torch.zeros(3, dtype=dtype, device=dev)
-    active = torch.ones((), dtype=torch.bool, device=dev)
-    for i in range(iters):
-        if may_stop(active):
-            break
-        corr = max(max_corr * decay ** i, final_corr)
-        moved = src @ R.T + t[None, :]
-        idx, d2 = top_k_nn(moved, src_valid, dst, dst_valid, k=1)
-        n1, d1 = idx[:, 0].long(), d2[:, 0]
-        w = (src_valid & (d1 < corr * corr)
-             & torch.isfinite(d1)).to(dtype)
-        Rn, tn = _umeyama(src, dst[n1], w)
-        done = ((torch.linalg.vector_norm(tn - t) < 1e-4)
-                & (torch.linalg.vector_norm(Rn - R) < 1e-5))
-        if corr > final_corr * 1.001:
-            done = torch.zeros_like(done)
-        R = torch.where(active, Rn, R)
-        t = torch.where(active, tn, t)
-        active = active & ~done
+    getFitnessScore, :1139-1141).  Recorded as the span `loop.icp` with
+    the `trips` run."""
+    with trace_scope("loop.icp") as span:
+        dtype, dev = src.dtype, src.device
+        tight = 6
+        decay = (final_corr / max_corr) ** (
+            1.0 / max(iters - 1 - min(tight, iters // 2), 1))
+        R = torch.eye(3, dtype=dtype, device=dev)
+        t = torch.zeros(3, dtype=dtype, device=dev)
+        active = torch.ones((), dtype=torch.bool, device=dev)
+        for i in range(iters):
+            if may_stop(active):
+                break
+            span["trips"] = i + 1
+            corr = max(max_corr * decay ** i, final_corr)
+            moved = src @ R.T + t[None, :]
+            idx, d2 = top_k_nn(moved, src_valid, dst, dst_valid, k=1)
+            n1, d1 = idx[:, 0].long(), d2[:, 0]
+            w = (src_valid & (d1 < corr * corr)
+                 & torch.isfinite(d1)).to(dtype)
+            Rn, tn = _umeyama(src, dst[n1], w)
+            done = ((torch.linalg.vector_norm(tn - t) < 1e-4)
+                    & (torch.linalg.vector_norm(Rn - R) < 1e-5))
+            if corr > final_corr * 1.001:
+                done = torch.zeros_like(done)
+            R = torch.where(active, Rn, R)
+            t = torch.where(active, tn, t)
+            active = active & ~done
 
-    moved = src @ R.T + t[None, :]
-    _, d2 = top_k_nn(moved, src_valid, dst, dst_valid, k=1)
-    ok = src_valid & torch.isfinite(d2[:, 0])
-    fitness = (torch.sum(torch.where(ok, d2[:, 0], 0.0))
-               / torch.clamp(torch.sum(ok), min=1))
-    return R, t, fitness
+        moved = src @ R.T + t[None, :]
+        _, d2 = top_k_nn(moved, src_valid, dst, dst_valid, k=1)
+        ok = src_valid & torch.isfinite(d2[:, 0])
+        fitness = (torch.sum(torch.where(ok, d2[:, 0], 0.0))
+                   / torch.clamp(torch.sum(ok), min=1))
+        return R, t, fitness
 
 
 def loop_points(store: kf.KeyframeStore, idx, cur, cur_time,
@@ -276,7 +280,7 @@ def try_close_loop(store: kf.KeyframeStore, cur, cur_time, cfg: SlamConfig,
 
     t_rel, q_rel, fitness, corr_t, corr_rot = cond(
         found, lambda: _align(store, idx, cur, cur_time, cfg, submap_cap,
-                              cloud_cap), skip())
+                              cloud_cap), skip(), "loop.align")
     consistent = ((corr_t <= consistency_bound(store, idx, cur, cfg))
                   & (corr_rot <= cfg.loop_consistency_rot_max))
     accepted = (found & (fitness < cfg.history_keyframe_fitness_score)

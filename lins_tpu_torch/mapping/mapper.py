@@ -65,6 +65,7 @@ from lins_tpu_torch.ops.voxel import voxel_downsample
 from lins_tpu_torch.ops.voxel_map import VoxDelta, VoxelMap
 from lins_tpu_torch.parallel.shard_map_store import shard_store
 from lins_tpu_torch.utils.device import resolve_device, resolve_dtype
+from lins_tpu_torch.utils.metrics import trace_scope
 from lins_tpu_torch.utils.tree import cond, tree_where
 
 
@@ -176,99 +177,107 @@ def _mapping_step_impl(state: MapperState, odo_pos, odo_quat, time,
                        corner_xyz, corner_valid, surf_xyz, surf_valid,
                        outl_xyz, outl_valid, imu_rp, cfg: SlamConfig,
                        corner_cap: int, surf_cap: int, outlier_cap: int,
-                       n_window: int, gp: lmn.GridParams, has_map: bool):
+                       n_window: int, gp: lmn.GridParams, has_map: bool,
+                       scan: int | None = None):
     """One mapping step.  `has_map` (host bool): whether any keyframe was
     stored before, false only on the first step ever.  Returns (new state,
-    refined pos, quat, metrics)."""
-    dtype, dev = state.bef_pos.dtype, state.bef_pos.device
-    odo_pos = odo_pos.to(dtype)
-    odo_quat = odo_quat.to(dtype)
-    t_w, q_w = warm_start(state, odo_pos, odo_quat)
-    sc = downsample_scan(corner_xyz, corner_valid, surf_xyz, surf_valid,
-                         outl_xyz, outl_valid, cfg, corner_cap, surf_cap,
-                         outlier_cap, dtype)
-    c_ds, c_ok, s_ds, s_ok, o_ds, o_ok = sc[:6]
+    refined pos, quat, metrics).  Recorded as the span `mapper.step`
+    (`n_refresh`, `iters`; `scan`: the scan's index in its chunk)."""
+    with trace_scope("mapper.step", scan=scan) as span:
+        dtype, dev = state.bef_pos.dtype, state.bef_pos.device
+        odo_pos = odo_pos.to(dtype)
+        odo_quat = odo_quat.to(dtype)
+        t_w, q_w = warm_start(state, odo_pos, odo_quat)
+        sc = downsample_scan(corner_xyz, corner_valid, surf_xyz, surf_valid,
+                             outl_xyz, outl_valid, cfg, corner_cap, surf_cap,
+                             outlier_cap, dtype)
+        c_ds, c_ok, s_ds, s_ok, o_ds, o_ok = sc[:6]
 
-    lmap, store = state.lmap, state.store
-    radius_map = _radius_map(cfg)
-    if radius_map and has_map:
-        # the radius window, rebuilt only when the selected keyframe set
-        # changes (extractSurroundingKeyFrames else-branch, :1248-1324)
-        ids, okm = lmn.select_radius(
-            store, t_w, cfg.surrounding_keyframe_search_radius, n_window)
-        changed = torch.any(ids != lmap.sel) & (store.count > 0)
-        wslots = torch.arange(n_window, dtype=torch.int32, device=dev)
-        lmap = cond(changed, lambda: lmn.rebuild_window(
-            state.lmap, store, ids, okm, wslots, gp), lmap)
-    zero = torch.zeros((), dtype=torch.int32, device=dev)
-    if has_map:
-        t_m, q_m, iters, n_sel, n_refresh = scan_to_map_grids(
-            t_w, q_w, sc.query_corner, sc.query_corner_ok, sc.query_surf,
-            sc.query_surf_ok, lmap.corner_grid, lmap.surf_grid,
-            lmap.n_corner, lmap.n_surf, cfg)
-    else:
-        t_m, q_m, iters, n_sel, n_refresh = t_w, q_w, zero, zero, zero
-
-    # transformUpdate: blend roll/pitch with the IMU attitude, yaw untouched
-    rpy_m = so3.quat_to_rpy(q_m)
-    imu_rp = imu_rp.to(dtype)
-    rp = torch.where(torch.all(torch.isfinite(imu_rp)), imu_rp, rpy_m[:2])
-    q_m = so3.rpy_to_quat(torch.stack([
-        0.998 * rpy_m[0] + 0.002 * rp[0],
-        0.998 * rpy_m[1] + 0.002 * rp[1],
-        rpy_m[2]]))
-
-    # keyframe gate: 0.3 m from the previous keyframe (always the first)
-    last_slot = torch.remainder(torch.clamp(store.count - 1, min=0),
-                                store.capacity)
-    dist = torch.linalg.vector_norm(t_m - take_row(store.pos, last_slot))
-
-    def do_add():
-        new_id = store.count
-        store2 = kf.add_keyframe(store, t_m, q_m, time, c_ds, c_ok,
-                                 s_ds, s_ok, o_ds, o_ok)
-        lm = lmap
-        if not radius_map:
-            # recent-window incremental insert (evict-subtract + add); in
-            # radius mode the next step's selection takes the new keyframe
-            lm = lmn.push_keyframe(lm, new_id, t_m, q_m, c_ds, c_ok, s_ds,
-                                   s_ok, o_ds, o_ok, gp)
-            # periodic compaction: tombstone leak, cell overflow and float
-            # sum drift are bounded by a full rebuild every
-            # map_rebuild_interval keyframes (computed and selected on the
-            # card)
-            need = (lm.pushes >= cfg.map_rebuild_interval) | lm.rebuild_due
-            ids, okm, wslots = lmn.recent_window_ids(store2, n_window)
-            lm = cond(need, lambda: lmn.rebuild_window(lm, store2, ids, okm,
-                                                       wslots, gp), lm)
-        edges = state.edges
+        lmap, store = state.lmap, state.store
+        radius_map = _radius_map(cfg)
+        if radius_map and has_map:
+            # the radius window, rebuilt only when the selected keyframe set
+            # changes (extractSurroundingKeyFrames else-branch, :1248-1324)
+            ids, okm = lmn.select_radius(
+                store, t_w, cfg.surrounding_keyframe_search_radius, n_window)
+            changed = torch.any(ids != lmap.sel) & (store.count > 0)
+            wslots = torch.arange(n_window, dtype=torch.int32, device=dev)
+            lmap = cond(changed, lambda: lmn.rebuild_window(
+                state.lmap, store, ids, okm, wslots, gp), lmap,
+                "mapper.radius_rebuild")
+        zero = torch.zeros((), dtype=torch.int32, device=dev)
         if has_map:
-            # odometry between-factor prev_kf -> new_kf with absolute ids
-            # (saveKeyFramesAndFactor, lidar_mapping_node.cpp:1693-1703)
-            t_rel, q_rel = pg.relative_pose(take_row(store.pos, last_slot),
-                                            take_row(store.quat, last_slot),
-                                            t_m, q_m)
-            edges = pg.add_edge(edges, torch.clamp(new_id - 1, min=0),
-                                new_id, t_rel, q_rel,
-                                1.0 / cfg.pg_odom_rot_var,
-                                1.0 / cfg.pg_odom_pos_var)
-        return store2, lm, edges
+            t_m, q_m, iters, n_sel, n_refresh = scan_to_map_grids(
+                t_w, q_w, sc.query_corner, sc.query_corner_ok, sc.query_surf,
+                sc.query_surf_ok, lmap.corner_grid, lmap.surf_grid,
+                lmap.n_corner, lmap.n_surf, cfg)
+        else:
+            t_m, q_m, iters, n_sel, n_refresh = t_w, q_w, zero, zero, zero
 
-    if has_map:
-        add = dist > cfg.keyframe_gate_meters
-        store, lmap, edges = cond(add, do_add, (store, lmap, state.edges))
-    else:
-        add = torch.ones((), dtype=torch.bool, device=dev)
-        store, lmap, edges = do_add()
+        # transformUpdate: blend roll/pitch with the IMU attitude, yaw
+        # untouched
+        rpy_m = so3.quat_to_rpy(q_m)
+        imu_rp = imu_rp.to(dtype)
+        rp = torch.where(torch.all(torch.isfinite(imu_rp)), imu_rp, rpy_m[:2])
+        q_m = so3.rpy_to_quat(torch.stack([
+            0.998 * rpy_m[0] + 0.002 * rp[0],
+            0.998 * rpy_m[1] + 0.002 * rp[1],
+            rpy_m[2]]))
 
-    new_state = MapperState(store=store, lmap=lmap, bef_pos=odo_pos,
-                            bef_quat=odo_quat, aft_pos=t_m, aft_quat=q_m,
-                            edges=edges, n_loops=state.n_loops)
-    metrics = dict(iters=iters, n_matches=n_sel, n_refresh=n_refresh,
-                   keyframe_added=add,
-                   warm_dist=torch.linalg.vector_norm(t_m - t_w),
-                   query_overflow=sc.query_overflow)
-    return new_state, t_m, q_m, metrics
+        # keyframe gate: 0.3 m from the previous keyframe (always the first)
+        last_slot = torch.remainder(torch.clamp(store.count - 1, min=0),
+                                    store.capacity)
+        dist = torch.linalg.vector_norm(t_m - take_row(store.pos, last_slot))
+
+        def do_add():
+            new_id = store.count
+            store2 = kf.add_keyframe(store, t_m, q_m, time, c_ds, c_ok,
+                                     s_ds, s_ok, o_ds, o_ok)
+            lm = lmap
+            if not radius_map:
+                # recent-window incremental insert (evict-subtract + add); in
+                # radius mode the next step's selection takes the new keyframe
+                lm = lmn.push_keyframe(lm, new_id, t_m, q_m, c_ds, c_ok, s_ds,
+                                       s_ok, o_ds, o_ok, gp)
+                # periodic compaction: tombstone leak, cell overflow and float
+                # sum drift are bounded by a full rebuild every
+                # map_rebuild_interval keyframes (computed and selected on the
+                # card)
+                need = (lm.pushes >= cfg.map_rebuild_interval) | lm.rebuild_due
+                ids, okm, wslots = lmn.recent_window_ids(store2, n_window)
+                lm = cond(need, lambda: lmn.rebuild_window(
+                    lm, store2, ids, okm, wslots, gp), lm,
+                    "mapper.window_rebuild")
+            edges = state.edges
+            if has_map:
+                # odometry between-factor prev_kf -> new_kf with absolute ids
+                # (saveKeyFramesAndFactor, lidar_mapping_node.cpp:1693-1703)
+                t_rel, q_rel = pg.relative_pose(take_row(store.pos, last_slot),
+                                                take_row(store.quat, last_slot),
+                                                t_m, q_m)
+                edges = pg.add_edge(edges, torch.clamp(new_id - 1, min=0),
+                                    new_id, t_rel, q_rel,
+                                    1.0 / cfg.pg_odom_rot_var,
+                                    1.0 / cfg.pg_odom_pos_var)
+            return store2, lm, edges
+
+        if has_map:
+            add = dist > cfg.keyframe_gate_meters
+            store, lmap, edges = cond(add, do_add, (store, lmap, state.edges),
+                                      "mapper.keyframe_add")
+        else:
+            add = torch.ones((), dtype=torch.bool, device=dev)
+            store, lmap, edges = do_add()
+
+        new_state = MapperState(store=store, lmap=lmap, bef_pos=odo_pos,
+                                bef_quat=odo_quat, aft_pos=t_m, aft_quat=q_m,
+                                edges=edges, n_loops=state.n_loops)
+        metrics = dict(iters=iters, n_matches=n_sel, n_refresh=n_refresh,
+                       keyframe_added=add,
+                       warm_dist=torch.linalg.vector_norm(t_m - t_w),
+                       query_overflow=sc.query_overflow)
+        span.update(n_refresh=n_refresh, iters=iters)
+        return new_state, t_m, q_m, metrics
 
 
 def _solve_and_rewrite(state: MapperState, edges: pg.EdgeSet,
@@ -309,39 +318,46 @@ def _solve_and_rewrite(state: MapperState, edges: pg.EdgeSet,
 
 def _loop_step_impl(state: MapperState, time, cfg: SlamConfig,
                     submap_cap: int, cloud_cap: int, opt_iters: int,
-                    n_window: int, gp: lmn.GridParams):
+                    n_window: int, gp: lmn.GridParams,
+                    scan: int | None = None):
     """One loop-closure attempt and, on accept, the pose-graph re-solve,
     keyframe pose rewrite and window rebuild (performLoopClosure +
     correctPoses, lidar_mapping_node.cpp:1114-1186, 1767-1795).  Returns
-    (new state, info dict of device scalars)."""
-    store = state.store
-    cur = torch.clamp(store.count - 1, min=0)          # absolute id
-    idx, found, accepted, t_rel, q_rel, fitness, corr_t = lc.try_close_loop(
-        store, cur, time, cfg, submap_cap, cloud_cap)
-    accepted = accepted & (store.count > 2)
+    (new state, info dict of device scalars).  Recorded as the span
+    `loop.attempt` (`found`, `accepted`, `applied`; `scan`: the scan's
+    index in its chunk)."""
+    with trace_scope("loop.attempt", scan=scan) as span:
+        store = state.store
+        cur = torch.clamp(store.count - 1, min=0)          # absolute id
+        (idx, found, accepted, t_rel, q_rel, fitness,
+         corr_t) = lc.try_close_loop(store, cur, time, cfg, submap_cap,
+                                     cloud_cap)
+        accepted = accepted & (store.count > 2)
 
-    # every accepted edge enters the graph; the solve and rewrite run only
-    # when its implied correction reaches loop_rewrite_min_m (smaller
-    # confirmations wait for the next triggered or the final solve)
-    w = 1.0 / torch.clamp(fitness * cfg.pg_loop_var_scale, min=1e-6)
-    edges_new = pg.add_edge(state.edges, idx, cur, t_rel, q_rel, w, w)
-    state1 = state._replace(
-        edges=tree_where(accepted, edges_new, state.edges),
-        n_loops=state.n_loops + accepted.to(torch.int32))
-    solve = accepted & (corr_t >= cfg.loop_rewrite_min_m)
+        # every accepted edge enters the graph; the solve and rewrite run only
+        # when its implied correction reaches loop_rewrite_min_m (smaller
+        # confirmations wait for the next triggered or the final solve)
+        w = 1.0 / torch.clamp(fitness * cfg.pg_loop_var_scale, min=1e-6)
+        edges_new = pg.add_edge(state.edges, idx, cur, t_rel, q_rel, w, w)
+        state1 = state._replace(
+            edges=tree_where(accepted, edges_new, state.edges),
+            n_loops=state.n_loops + accepted.to(torch.int32))
+        solve = accepted & (corr_t >= cfg.loop_rewrite_min_m)
 
-    def apply():
-        new, good = _solve_and_rewrite(state1, state1.edges, cfg, opt_iters,
-                                       n_window, gp)
-        # whole-solve guard: a non-finite live pose discards the whole
-        # application, the edge included (the next attempt re-measures it)
-        return tree_where(good, new, state), good
+        def apply():
+            new, good = _solve_and_rewrite(state1, state1.edges, cfg,
+                                           opt_iters, n_window, gp)
+            # whole-solve guard: a non-finite live pose discards the whole
+            # application, the edge included (the next attempt re-measures it)
+            return tree_where(good, new, state), good
 
-    new_state, applied = cond(solve, apply,
-                              (state1, torch.zeros_like(solve)))
-    info = dict(found=found, accepted=accepted, applied=applied,
-                fitness=fitness, matched=idx, corr_t=corr_t)
-    return new_state, info
+        new_state, applied = cond(solve, apply,
+                                  (state1, torch.zeros_like(solve)),
+                                  "loop.solve")
+        info = dict(found=found, accepted=accepted, applied=applied,
+                    fitness=fitness, matched=idx, corr_t=corr_t)
+        span.update(found=found, accepted=accepted, applied=applied)
+        return new_state, info
 
 
 def _final_solve_impl(state: MapperState, cfg: SlamConfig, opt_iters: int,
@@ -373,27 +389,28 @@ def _mapping_chunk_impl(state: MapperState, rns, qbns, ts, cxyz, cval, sxyz,
     keyframe was stored before the chunk.  Returns (new state, fused pos
     (K,3), quat (K,4), the mapping steps [(i, pos, quat, metrics)], the
     loop attempts [(i, info)], has_map after the chunk)."""
-    dt = state.bef_pos.dtype
-    pos, quat, steps, loops = [], [], [], []
-    for i in range(len(map_flags)):
-        rn, qbn = rns[i].to(dt), qbns[i].to(dt)
-        if map_flags[i]:
-            state, t_m, q_m, metrics = _mapping_step_impl(
-                state, rn, qbn, ts[i].to(dt), cxyz[i], cval[i], sxyz[i],
-                sval[i], oxyz[i], oval[i], imu_rp[i], cfg, corner_cap,
-                surf_cap, outlier_cap, n_window, gp, has_map)
-            has_map = True
-            steps.append((i, t_m, q_m, metrics))
-        if loop_flags[i]:
-            state, info = _loop_step_impl(state, ts[i].to(dt), cfg,
-                                          submap_cap, cloud_cap, opt_iters,
-                                          n_window, gp)
-            loops.append((i, info))
-        p, q = warm_start(state, rn, qbn)
-        pos.append(p)
-        quat.append(q)
-    return (state, torch.stack(pos), torch.stack(quat), steps, loops,
-            has_map)
+    with trace_scope("mapper.chunk", K=len(map_flags)):
+        dt = state.bef_pos.dtype
+        pos, quat, steps, loops = [], [], [], []
+        for i in range(len(map_flags)):
+            rn, qbn = rns[i].to(dt), qbns[i].to(dt)
+            if map_flags[i]:
+                state, t_m, q_m, metrics = _mapping_step_impl(
+                    state, rn, qbn, ts[i].to(dt), cxyz[i], cval[i], sxyz[i],
+                    sval[i], oxyz[i], oval[i], imu_rp[i], cfg, corner_cap,
+                    surf_cap, outlier_cap, n_window, gp, has_map, scan=i)
+                has_map = True
+                steps.append((i, t_m, q_m, metrics))
+            if loop_flags[i]:
+                state, info = _loop_step_impl(state, ts[i].to(dt), cfg,
+                                              submap_cap, cloud_cap, opt_iters,
+                                              n_window, gp, scan=i)
+                loops.append((i, info))
+            p, q = warm_start(state, rn, qbn)
+            pos.append(p)
+            quat.append(q)
+        return (state, torch.stack(pos), torch.stack(quat), steps, loops,
+                has_map)
 
 
 def mapper_state_from_numpy(d, device=None, dtype=torch.float32):

@@ -37,6 +37,7 @@ from lins_tpu_torch.ops.grid_nn import (build_grid, gather_candidates,
                                         knn_from_candidates)
 from lins_tpu_torch.ops.lin3 import eigh_sym3x3, solve_sym3x3
 from lins_tpu_torch.utils.device import may_stop
+from lins_tpu_torch.utils.metrics import trace_scope
 from lins_tpu_torch.utils.tree import cond
 
 
@@ -147,96 +148,103 @@ def scan_to_map_grids(t0, q0, corner_pts, corner_valid, surf_pts, surf_valid,
     """Full GN refinement loop (scan2MapOptimization,
     lidar_mapping_node.cpp:1635-1652) against prebuilt map hash grids.
     Returns (t, q, iters, n_matches, n_refresh) — n_refresh the number of
-    in-loop re-gathers the staleness bounds forced."""
-    dtype, dev = t0.dtype, t0.device
-    enough_map = (n_corner_map > 10) & (n_surf_map > 100)
-    use_pallas = cfg.use_pallas_select
-    C = cfg.s2m_cand
-    Qc = corner_pts.shape[0]
-    valid_all = torch.cat([corner_valid, surf_valid])
+    in-loop re-gathers the staleness bounds forced.  Recorded as the span
+    `mapper.scan_to_map` (`trips` run, `live` = `iters`), each trip's
+    re-gather as `mapper.regather`."""
+    with trace_scope("mapper.scan_to_map") as span:
+        dtype, dev = t0.dtype, t0.device
+        enough_map = (n_corner_map > 10) & (n_surf_map > 100)
+        use_pallas = cfg.use_pallas_select
+        C = cfg.s2m_cand
+        Qc = corner_pts.shape[0]
+        valid_all = torch.cat([corner_valid, surf_valid])
 
-    def world(t, q):
-        return (so3.quat_rotate(q[None, :], corner_pts) + t[None, :],
-                so3.quat_rotate(q[None, :], surf_pts) + t[None, :])
+        def world(t, q):
+            return (so3.quat_rotate(q[None, :], corner_pts) + t[None, :],
+                    so3.quat_rotate(q[None, :], surf_pts) + t[None, :])
 
-    def gather_all(t, q):
-        pc, ps = world(t, q)
-        cc, cc_ok, cc_d2C, cc_cov = gather_candidates(
-            pc, corner_valid, corner_grid, C, use_pallas)
-        sc, sc_ok, sc_d2C, sc_cov = gather_candidates(
-            ps, surf_valid, surf_grid, C, use_pallas)
-        return _Gather(pc, ps, cc, cc_ok, cc_d2C, cc_cov,
-                       sc, sc_ok, sc_d2C, sc_cov)
+        def gather_all(t, q):
+            pc, ps = world(t, q)
+            cc, cc_ok, cc_d2C, cc_cov = gather_candidates(
+                pc, corner_valid, corner_grid, C, use_pallas)
+            sc, sc_ok, sc_d2C, sc_cov = gather_candidates(
+                ps, surf_valid, surf_grid, C, use_pallas)
+            return _Gather(pc, ps, cc, cc_ok, cc_d2C, cc_cov,
+                           sc, sc_ok, sc_d2C, sc_cov)
 
-    def rerank_both(pc, ps, G):
-        """One 5-NN re-rank over the concatenated corner+surf caches."""
-        nn, d2 = knn_from_candidates(torch.cat([pc, ps]), valid_all,
-                                     torch.cat([G.cc, G.sc]),
-                                     torch.cat([G.cc_ok, G.sc_ok]))
-        return nn[:Qc], d2[:Qc], nn[Qc:], d2[Qc:]
+        def rerank_both(pc, ps, G):
+            """One 5-NN re-rank over the concatenated corner+surf caches."""
+            nn, d2 = knn_from_candidates(torch.cat([pc, ps]), valid_all,
+                                         torch.cat([G.cc, G.sc]),
+                                         torch.cat([G.cc_ok, G.sc_ok]))
+            return nn[:Qc], d2[:Qc], nn[Qc:], d2[Qc:]
 
-    def stale(p_now, p_gat, valid, d2_5, d2C, cov):
-        """True iff some query's cached top-5 may differ from brute force:
-        a point outside the cache was >= min(cover, sqrt(d2C)) from the
-        query at gather time, so the cache is exact for accepted matches
-        while min(r5, 1) + (distance moved) <= that."""
-        d = _norm(p_now - p_gat)
-        safe = torch.minimum(cov, torch.sqrt(d2C))
-        r5 = torch.clamp(torch.sqrt(d2_5), max=1.0)
-        return torch.any(valid & (r5 + d > safe))
+        def stale(p_now, p_gat, valid, d2_5, d2C, cov):
+            """True iff some query's cached top-5 may differ from brute force:
+            a point outside the cache was >= min(cover, sqrt(d2C)) from the
+            query at gather time, so the cache is exact for accepted matches
+            while min(r5, 1) + (distance moved) <= that."""
+            d = _norm(p_now - p_gat)
+            safe = torch.minimum(cov, torch.sqrt(d2C))
+            r5 = torch.clamp(torch.sqrt(d2_5), max=1.0)
+            return torch.any(valid & (r5 + d > safe))
 
-    t, q = t0, q0
-    G = gather_all(t0, q0)
-    eye6 = torch.eye(6, dtype=dtype, device=dev)
-    zero = torch.zeros((), dtype=torch.int32, device=dev)
-    iters, n_sel_out, n_refresh = zero, zero, zero
-    active = torch.ones((), dtype=torch.bool, device=dev)
-    proj = eye6
-    for it in range(cfg.scan2map_iters):
-        if may_stop(active):
-            break
-        pc, ps = world(t, q)
-        nn_c, d2_c, nn_s, d2_s = rerank_both(pc, ps, G)
-        need = (stale(pc, G.pc, corner_valid, d2_c[:, 4], G.cc_d2C,
-                      G.cc_cov)
-                | stale(ps, G.ps, surf_valid, d2_s[:, 4], G.sc_d2C,
-                        G.sc_cov))
+        t, q = t0, q0
+        G = gather_all(t0, q0)
+        eye6 = torch.eye(6, dtype=dtype, device=dev)
+        zero = torch.zeros((), dtype=torch.int32, device=dev)
+        iters, n_sel_out, n_refresh = zero, zero, zero
+        active = torch.ones((), dtype=torch.bool, device=dev)
+        proj = eye6
+        for it in range(cfg.scan2map_iters):
+            if may_stop(active):
+                break
+            span["trips"] = it + 1
+            pc, ps = world(t, q)
+            nn_c, d2_c, nn_s, d2_s = rerank_both(pc, ps, G)
+            need = (stale(pc, G.pc, corner_valid, d2_c[:, 4], G.cc_d2C,
+                          G.cc_cov)
+                    | stale(ps, G.ps, surf_valid, d2_s[:, 4], G.sc_d2C,
+                            G.sc_cov))
 
-        def refresh(t=t, q=q, pc=pc, ps=ps):
-            G2 = gather_all(t, q)
-            return (G2, *rerank_both(pc, ps, G2))
+            def refresh(t=t, q=q, pc=pc, ps=ps):
+                G2 = gather_all(t, q)
+                return (G2, *rerank_both(pc, ps, G2))
 
-        # the cache of a frozen (converged) trip feeds nothing that is kept
-        G, nn_c, d2_c, nn_s, d2_s = cond(need, refresh,
-                                         (G, nn_c, d2_c, nn_s, d2_s))
-        cc, rc, okc = corner_residuals(pc, nn_c, d2_c, corner_valid)
-        cs, rs, oks = surf_residuals(ps, nn_s, d2_s, surf_valid)
-        H1, b1, n1 = _gn_normal_eqs(corner_pts, cc, rc, okc, q)
-        H2, b2, n2 = _gn_normal_eqs(surf_pts, cs, rs, oks, q)
-        H, b = H1 + H2, b1 + b2
-        n_sel = (n1 + n2).to(torch.int32)
-        enough = n_sel >= 50   # LMOptimization:1531-1533
+            # the cache of a frozen (converged) trip feeds nothing that is kept
+            refreshed = need & active
+            G, nn_c, d2_c, nn_s, d2_s = cond(refreshed, refresh,
+                                             (G, nn_c, d2_c, nn_s, d2_s),
+                                             "mapper.regather")
+            cc, rc, okc = corner_residuals(pc, nn_c, d2_c, corner_valid)
+            cs, rs, oks = surf_residuals(ps, nn_s, d2_s, surf_valid)
+            H1, b1, n1 = _gn_normal_eqs(corner_pts, cc, rc, okc, q)
+            H2, b2, n2 = _gn_normal_eqs(surf_pts, cs, rs, oks, q)
+            H, b = H1 + H2, b1 + b2
+            n_sel = (n1 + n2).to(torch.int32)
+            enough = n_sel >= 50   # LMOptimization:1531-1533
 
-        x = torch.linalg.solve_ex(H + 1e-9 * eye6, b)[0]
-        if it == 0:
-            # degeneracy projection from the first trip's H
-            proj = spectral_projector(H, 100.0)
-        x = torch.sum(proj * x[None, :], dim=1)
+            x = torch.linalg.solve_ex(H + 1e-9 * eye6, b)[0]
+            if it == 0:
+                # degeneracy projection from the first trip's H
+                proj = spectral_projector(H, 100.0)
+            x = torch.sum(proj * x[None, :], dim=1)
 
-        q_new = so3.quat_normalize(so3.quat_mul(q, so3.exp_axis(x[0:3])))
-        t_new = t + x[3:6]
-        do = active & enough & enough_map
-        delta_r = _norm(so3.rad2deg(x[0:3]))
-        delta_t = _norm(100.0 * x[3:6])
-        conv = do & (delta_r < 0.05) & (delta_t < 0.05)
+            q_new = so3.quat_normalize(so3.quat_mul(q, so3.exp_axis(x[0:3])))
+            t_new = t + x[3:6]
+            do = active & enough & enough_map
+            delta_r = _norm(so3.rad2deg(x[0:3]))
+            delta_t = _norm(100.0 * x[3:6])
+            conv = do & (delta_r < 0.05) & (delta_t < 0.05)
 
-        t = torch.where(do, t_new, t)
-        q = torch.where(do, q_new, q)
-        n_refresh = n_refresh + (active & need).to(torch.int32)
-        n_sel_out = torch.where(active, n_sel, n_sel_out)
-        iters = iters + active.to(torch.int32)
-        active = active & ~conv
-    return t, q, iters, n_sel_out, n_refresh
+            t = torch.where(do, t_new, t)
+            q = torch.where(do, q_new, q)
+            n_refresh = n_refresh + refreshed.to(torch.int32)
+            n_sel_out = torch.where(active, n_sel, n_sel_out)
+            iters = iters + active.to(torch.int32)
+            active = active & ~conv
+        span["live"] = iters
+        return t, q, iters, n_sel_out, n_refresh
 
 
 def scan_to_map(t0, q0, corner_pts, corner_valid, surf_pts, surf_valid,

@@ -29,7 +29,8 @@ from lins_tpu_torch.ops import assoc as assoc_k
 from lins_tpu_torch.ops.label import label_components
 from lins_tpu_torch.utils.device import resolve_device, resolve_dtype
 from lins_tpu_torch.utils.lazy import ChunkMetrics, LazyRows, to_numpy
-from lins_tpu_torch.utils.tree import tree_where
+from lins_tpu_torch.utils.metrics import trace_scope
+from lins_tpu_torch.utils.tree import cond, tree_where
 
 STATUS_INIT = 0
 STATUS_FIRST_SCAN = 1
@@ -110,13 +111,13 @@ def running_step_impl(filter_state: eskf.FilterState,
     # 4) divergence fallback: GN ICP from the propagated pose
     #    (StateEstimator.hpp:585-592).  On the card it is computed every
     #    scan and selected on the device; on the CPU only when needed.
-    upd = res.state
-    if res.diverged.device.type != "cpu" or bool(res.diverged):
+    def fallback():
         rn, qbn, _ = gn_icp.estimate_transform(
             fs.rn, fs.qbn, feats.flat, feats.sharp, last_surf, last_corner,
             cfg, refs=refs)
-        upd = tree_where(res.diverged,
-                         res.state._replace(rn=rn, qbn=qbn, P=fs.P), upd)
+        return res.state._replace(rn=rn, qbn=qbn, P=fs.P)
+
+    upd = cond(res.diverged, fallback, res.state, "odometry.fallback")
     # if not enough features, skip the measurement update entirely
     upd = tree_where(enough, upd, fs)
 
@@ -164,7 +165,8 @@ def full_scan_step_impl(filter_state, global_state, last_surf, last_corner,
                         cfg: SlamConfig):
     """Entire RUNNING-state per-scan path: front end (its labelling is one
     kernel launch) + propagation + IESKF + composition + re-anchoring."""
-    _, _, feats = process_cloud(xyz, n_points, cfg)
+    with trace_scope("odometry.frontend"):
+        _, _, feats = process_cloud(xyz, n_points, cfg)
     return running_step_impl(filter_state, global_state, feats, last_surf,
                              last_corner, dts, accs, gyrs, imu_valid, cfg)
 
@@ -178,7 +180,8 @@ def scan_pre_vmap(xyz_k, n_k, cfg: SlamConfig) -> dict:
 
 def scan_rest_impl(labels, pre_out, filter_state, global_state, last_surf,
                    last_corner, dts, accs, gyrs, imu_valid, cfg: SlamConfig):
-    _, feats = frontend_post(labels, pre_out, cfg)
+    with trace_scope("odometry.frontend"):
+        _, feats = frontend_post(labels, pre_out, cfg)
     return running_step_impl(filter_state, global_state, feats, last_surf,
                              last_corner, dts, accs, gyrs, imu_valid, cfg)
 
@@ -190,8 +193,9 @@ def _chunk_loop(step, state, K):
     `lax.scan` returns them."""
     outs = []
     for k in range(K):
-        (fs, gs, lsurf, lcorn, rel_rn, rel_qbn, metrics,
-         outl) = step(state, k)
+        with trace_scope("odometry.step", scan=k):
+            (fs, gs, lsurf, lcorn, rel_rn, rel_qbn, metrics,
+             outl) = step(state, k)
         state = (fs, gs, lsurf, lcorn)
         clouds = dict(cxyz=lcorn["xyz"], cval=lcorn["valid"],
                       sxyz=lsurf["xyz"], sval=lsurf["valid"],
@@ -242,14 +246,16 @@ def odometry_chunk_impl(state, xyz_k, n_k, dts_k, accs_k, gyrs_k,
     -> post + running step per scan; otherwise each scan runs the whole
     front end in turn.  Returns (state, (rns, qbns, rel_rns, rel_qbns,
     metrics, clouds)) stacked per scan."""
-    if cfg.use_pallas:
-        pre_k = scan_pre_vmap(xyz_k, n_k, cfg)
-        labels_k = label_components(pre_k["e_right"], pre_k["e_down"],
-                                    pre_k["eligible"])
-        return chunk_rest_impl(labels_k, pre_k, *state, dts_k, accs_k,
-                               gyrs_k, imu_valid_k, cfg)
-    return chunk_scan_step_impl(*state, xyz_k, n_k, dts_k, accs_k, gyrs_k,
-                                imu_valid_k, cfg)
+    with trace_scope("odometry.chunk", K=len(xyz_k)):
+        if cfg.use_pallas:
+            with trace_scope("odometry.frontend"):
+                pre_k = scan_pre_vmap(xyz_k, n_k, cfg)
+                labels_k = label_components(
+                    pre_k["e_right"], pre_k["e_down"], pre_k["eligible"])
+            return chunk_rest_impl(labels_k, pre_k, *state, dts_k, accs_k,
+                                   gyrs_k, imu_valid_k, cfg)
+        return chunk_scan_step_impl(*state, xyz_k, n_k, dts_k, accs_k,
+                                    gyrs_k, imu_valid_k, cfg)
 
 
 def second_scan_step(feats: ScanFeatures, last_surf, last_corner,
@@ -293,7 +299,8 @@ def second_scan_step(feats: ScanFeatures, last_surf, last_corner,
 
 def first_frontend(xyz, n_points, cfg: SlamConfig):
     """Front end + the feature-count gate values."""
-    _, _, feats = process_cloud(xyz, n_points, cfg)
+    with trace_scope("odometry.frontend"):
+        _, _, feats = process_cloud(xyz, n_points, cfg)
     counts = torch.stack([torch.sum(feats.less_sharp.valid),
                           torch.sum(feats.less_flat.valid)]).to(torch.int32)
     return feats, counts
@@ -504,10 +511,11 @@ class LinsOdometry:
                      self.last_corner)
             if cfg.use_pallas:
                 # split per-scan pipeline: pre -> label kernel -> rest
-                pre_out = frontend_pre(xyz_t, n_t, cfg)
-                labels = label_components(pre_out["e_right"],
-                                          pre_out["e_down"],
-                                          pre_out["eligible"])
+                with trace_scope("odometry.frontend"):
+                    pre_out = frontend_pre(xyz_t, n_t, cfg)
+                    labels = label_components(pre_out["e_right"],
+                                              pre_out["e_down"],
+                                              pre_out["eligible"])
                 out = scan_rest_impl(labels, pre_out, *state, *imu, cfg)
             else:
                 out = full_scan_step_impl(*state, xyz_t, n_t, *imu, cfg)

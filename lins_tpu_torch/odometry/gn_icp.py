@@ -16,6 +16,7 @@ from lins_tpu_torch.config import SlamConfig
 from lins_tpu_torch.geom import so3
 from lins_tpu_torch.ops import assoc
 from lins_tpu_torch.utils.device import may_stop
+from lins_tpu_torch.utils.metrics import trace_scope
 
 # Newton steps of the matrix sign iteration in `spectral_projector`: each
 # halves an eigenvalue's distance from ±1 while it is far from it, then
@@ -73,31 +74,35 @@ def estimate_transform(rn0, qbn0, new_flat, new_sharp, last_surf, last_corner,
     Each trip's (JtJ, Jtb) and match counts come from K4 and K5
     (`ops/assoc.scan_normal_equations`, "gn" rows).  `refs`: the reference
     sets as `ops/assoc.reference_sets` made them, when the caller has.
-    Returns (rn, qbn, iters).
+    Returns (rn, qbn, iters).  Recorded as the span `odometry.gn_icp`:
+    `trips` run, `live` = `iters`.
     """
-    dtype, dev = rn0.dtype, rn0.device
-    flat, sharp = assoc.queries(new_flat, dtype), assoc.queries(new_sharp,
-                                                                 dtype)
-    if refs is None:
-        refs = assoc.reference_sets(last_surf, last_corner, dtype)
-    rn, qbn = rn0, qbn0
-    proj = torch.eye(6, dtype=dtype, device=dev)
-    iters = torch.zeros((), dtype=torch.int32, device=dev)
-    active = torch.ones((), dtype=torch.bool, device=dev)
+    with trace_scope("odometry.gn_icp") as span:
+        dtype, dev = rn0.dtype, rn0.device
+        flat, sharp = assoc.queries(new_flat, dtype), assoc.queries(new_sharp,
+                                                                     dtype)
+        if refs is None:
+            refs = assoc.reference_sets(last_surf, last_corner, dtype)
+        rn, qbn = rn0, qbn0
+        proj = torch.eye(6, dtype=dtype, device=dev)
+        iters = torch.zeros((), dtype=torch.int32, device=dev)
+        active = torch.ones((), dtype=torch.bool, device=dev)
 
-    for it in range(cfg.num_iter):
-        if may_stop(active):
-            break
-        (JtJ_s, Jtb_s, _, n_s), (JtJ_c, Jtb_c, _, n_c) = (
-            assoc.scan_normal_equations(flat, sharp, *refs, rn, qbn, it, cfg,
-                                        "gn"))
-        enough = (n_s >= 10) & (n_c >= 5)
-        rn_n, qbn_n, conv_n, proj_n = gn_step(
-            rn, qbn, JtJ_s + JtJ_c, Jtb_s + Jtb_c, it, proj)
-        step = active & enough
-        rn = torch.where(step, rn_n, rn)
-        qbn = torch.where(step, qbn_n, qbn)
-        proj = torch.where(step, proj_n, proj)
-        iters = iters + active.to(torch.int32)
-        active = active & ~(conv_n & enough)
-    return rn, qbn, iters
+        for it in range(cfg.num_iter):
+            if may_stop(active):
+                break
+            span["trips"] = it + 1
+            (JtJ_s, Jtb_s, _, n_s), (JtJ_c, Jtb_c, _, n_c) = (
+                assoc.scan_normal_equations(flat, sharp, *refs, rn, qbn, it,
+                                            cfg, "gn"))
+            enough = (n_s >= 10) & (n_c >= 5)
+            rn_n, qbn_n, conv_n, proj_n = gn_step(
+                rn, qbn, JtJ_s + JtJ_c, Jtb_s + Jtb_c, it, proj)
+            step = active & enough
+            rn = torch.where(step, rn_n, rn)
+            qbn = torch.where(step, qbn_n, qbn)
+            proj = torch.where(step, proj_n, proj)
+            iters = iters + active.to(torch.int32)
+            active = active & ~(conv_n & enough)
+        span["live"] = iters
+        return rn, qbn, iters

@@ -22,6 +22,7 @@ from lins_tpu_torch.config import SlamConfig
 from lins_tpu_torch.imu import eskf
 from lins_tpu_torch.ops import assoc
 from lins_tpu_torch.utils.device import may_stop
+from lins_tpu_torch.utils.metrics import trace_scope
 from lins_tpu_torch.utils.tree import tree_where
 
 
@@ -78,82 +79,87 @@ def update(filter_state: eskf.FilterState,
     (`ops/assoc.scan_normal_equations`, "ieskf" rows): JtJ and Jtr are the
     sums of the surf and corner blocks and the residual norm is
     sqrt(Σr²_surf + Σr²_corner), as `_blocks_xla` of the reference package
-    forms them.
+    forms them.  Recorded as the span `odometry.ieskf`: `trips` run,
+    `live` = `iters`.
     """
-    dtype, dev = filter_state.rn.dtype, filter_state.rn.device
-    flat, sharp = assoc.queries(new_flat, dtype), assoc.queries(new_sharp,
-                                                                 dtype)
-    if refs is None:
-        refs = assoc.reference_sets(last_surf, last_corner, dtype)
-    Pk = filter_state.P
-    # a product with 1/σ², as XLA folds the reference's division by σ²
-    inv_sigma2 = 1.0 / cfg.lidar_std ** 2
-    jit_scale = 1e-9 if dtype == torch.float64 else 1e-6
-    P_inv = _spd_inverse(Pk, jit_scale)
-    nominal0 = filter_state
+    with trace_scope("odometry.ieskf") as span:
+        dtype, dev = filter_state.rn.dtype, filter_state.rn.device
+        flat, sharp = assoc.queries(new_flat, dtype), assoc.queries(new_sharp,
+                                                                     dtype)
+        if refs is None:
+            refs = assoc.reference_sets(last_surf, last_corner, dtype)
+        Pk = filter_state.P
+        # a product with 1/σ², as XLA folds the reference's division by σ²
+        inv_sigma2 = 1.0 / cfg.lidar_std ** 2
+        jit_scale = 1e-9 if dtype == torch.float64 else 1e-6
+        P_inv = _spd_inverse(Pk, jit_scale)
+        nominal0 = filter_state
 
-    def scalar(v, dt):
-        return torch.full((), v, dtype=dt, device=dev)
+        def scalar(v, dt):
+            return torch.full((), v, dtype=dt, device=dev)
 
-    lin = nominal0
-    res_prev = scalar(1e6, dtype)
-    HtH_s = torch.zeros((eskf.DIM, eskf.DIM), dtype=dtype, device=dev)
-    A_inv = torch.zeros_like(HtH_s)
-    div = scalar(False, torch.bool)
-    iters = scalar(0, torch.int32)
-    ns = nc = scalar(0, torch.int32)
-    res_norm_out = scalar(0.0, dtype)
-    active = scalar(True, torch.bool)
+        lin = nominal0
+        res_prev = scalar(1e6, dtype)
+        HtH_s = torch.zeros((eskf.DIM, eskf.DIM), dtype=dtype, device=dev)
+        A_inv = torch.zeros_like(HtH_s)
+        div = scalar(False, torch.bool)
+        iters = scalar(0, torch.int32)
+        ns = nc = scalar(0, torch.int32)
+        res_norm_out = scalar(0.0, dtype)
+        active = scalar(True, torch.bool)
 
-    for it in range(cfg.num_iter):
-        if may_stop(active):
-            break
-        (JtJ_s, Jtr_s, rsq_s, ns_new), (JtJ_c, Jtr_c, rsq_c, nc_new) = (
-            assoc.scan_normal_equations(flat, sharp, *refs, lin.rn, lin.qbn,
-                                        it, cfg, "ieskf"))
-        JtJ, Jtr = JtJ_s + JtJ_c, Jtr_s + Jtr_c
-        res_norm = torch.sqrt(rsq_s + rsq_c)
-        HtH_s_new = _embed6(JtJ) * inv_sigma2
-        Htr_s = _embed6v(Jtr) * inv_sigma2
+        for it in range(cfg.num_iter):
+            if may_stop(active):
+                break
+            span["trips"] = it + 1
+            (JtJ_s, Jtr_s, rsq_s, ns_new), (JtJ_c, Jtr_c, rsq_c, nc_new) = (
+                assoc.scan_normal_equations(flat, sharp, *refs, lin.rn, lin.qbn,
+                                            it, cfg, "ieskf"))
+            JtJ, Jtr = JtJ_s + JtJ_c, Jtr_s + Jtr_c
+            res_norm = torch.sqrt(rsq_s + rsq_c)
+            HtH_s_new = _embed6(JtJ) * inv_sigma2
+            Htr_s = _embed6v(Jtr) * inv_sigma2
 
-        A = P_inv + HtH_s_new
-        A_inv_new = _spd_inverse(A, jit_scale * 1e-3)
+            A = P_inv + HtH_s_new
+            A_inv_new = _spd_inverse(A, jit_scale * 1e-3)
 
-        delta = eskf.box_minus(nominal0, lin)
-        upd = -(A_inv_new @ (Htr_s + HtH_s_new @ delta)) + delta
+            delta = eskf.box_minus(nominal0, lin)
+            upd = -(A_inv_new @ (Htr_s + HtH_s_new @ delta)) + delta
 
-        has_nan = torch.any(torch.isnan(upd))
-        div_new = has_nan | (res_norm > res_prev * 10.0)
-        upd = torch.nan_to_num(upd)
-        # on divergence the reference breaks *before* applying the update
-        lin_new = tree_where(div_new, lin, eskf.box_plus(lin, upd))
-        conv_new = torch.linalg.vector_norm(upd) <= 1e-2
+            has_nan = torch.any(torch.isnan(upd))
+            div_new = has_nan | (res_norm > res_prev * 10.0)
+            upd = torch.nan_to_num(upd)
+            # on divergence the reference breaks *before* applying the update
+            lin_new = tree_where(div_new, lin, eskf.box_plus(lin, upd))
+            conv_new = torch.linalg.vector_norm(upd) <= 1e-2
 
-        # a diverged iteration keeps the previous blocks; a frozen trip
-        # (converged or diverged before it) changes nothing
-        keep = div_new | ~active
-        HtH_s = torch.where(keep, HtH_s, HtH_s_new)
-        A_inv = torch.where(keep, A_inv, A_inv_new)
-        res_prev = torch.where(keep, res_prev, res_norm)
-        lin = tree_where(active, lin_new, lin)
-        div = div | (active & div_new)
-        ns = torch.where(active, ns_new, ns)
-        nc = torch.where(active, nc_new, nc)
-        res_norm_out = torch.where(active, res_norm, res_norm_out)
-        iters = iters + active.to(torch.int32)
-        active = active & ~conv_new & ~div_new
+            # a diverged iteration keeps the previous blocks; a frozen trip
+            # (converged or diverged before it) changes nothing
+            keep = div_new | ~active
+            HtH_s = torch.where(keep, HtH_s, HtH_s_new)
+            A_inv = torch.where(keep, A_inv, A_inv_new)
+            res_prev = torch.where(keep, res_prev, res_norm)
+            lin = tree_where(active, lin_new, lin)
+            div = div | (active & div_new)
+            ns = torch.where(active, ns_new, ns)
+            nc = torch.where(active, nc_new, nc)
+            res_norm_out = torch.where(active, res_norm, res_norm_out)
+            iters = iters + active.to(torch.int32)
+            active = active & ~conv_new & ~div_new
+        span["live"] = iters
 
-    # Joseph-form covariance update once at the end (StateEstimator.hpp:595-598)
-    KH = A_inv @ HtH_s
-    IKH = torch.eye(eskf.DIM, dtype=dtype, device=dev) - KH
-    KRK = A_inv @ HtH_s @ A_inv.T
-    P_new = IKH @ Pk @ IKH.T + KRK
-    P_new = 0.5 * (P_new + P_new.T)
+        # Joseph-form covariance update once at the end
+        # (StateEstimator.hpp:595-598)
+        KH = A_inv @ HtH_s
+        IKH = torch.eye(eskf.DIM, dtype=dtype, device=dev) - KH
+        KRK = A_inv @ HtH_s @ A_inv.T
+        P_new = IKH @ Pk @ IKH.T + KRK
+        P_new = 0.5 * (P_new + P_new.T)
 
-    updated = lin._replace(P=P_new, time=filter_state.time,
-                           acc_last=filter_state.acc_last,
-                           gyr_last=filter_state.gyr_last)
-    # diverged: caller substitutes the GN fallback pose; keep Pk unchanged
-    out_state = tree_where(div, filter_state, updated)
-    return IESKFResult(state=out_state, diverged=div, iters=iters,
-                       n_surf=ns, n_corner=nc, residual_norm=res_norm_out)
+        updated = lin._replace(P=P_new, time=filter_state.time,
+                               acc_last=filter_state.acc_last,
+                               gyr_last=filter_state.gyr_last)
+        # diverged: caller substitutes the GN fallback pose; keep Pk unchanged
+        out_state = tree_where(div, filter_state, updated)
+        return IESKFResult(state=out_state, diverged=div, iters=iters,
+                           n_surf=ns, n_corner=nc, residual_norm=res_norm_out)

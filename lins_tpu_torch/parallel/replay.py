@@ -28,6 +28,7 @@ from lins_tpu_torch.mapping import mapper as mp
 from lins_tpu_torch.odometry import estimator as est
 from lins_tpu_torch.parallel.multihost import Mesh
 from lins_tpu_torch.utils.device import resolve_device, resolve_dtype
+from lins_tpu_torch.utils.metrics import trace_scope
 from lins_tpu_torch.utils.tree import tree_map
 
 
@@ -148,7 +149,8 @@ def make_sharded_slam_replay(cfg: SlamConfig, mesh: Mesh,
     of `LinsMapper.plan_chunk` shared by every stream, and `has_map`:
     whether the streams' maps already hold a keyframe (False for
     `batched_mapper_state`'s fresh states; after a chunk, `has_map or
-    any(mf)`)."""
+    any(mf)`).  Each call is the span `parallel.chunk` (streams, K), with
+    each stream's `odometry.chunk` and `mapper.chunk` inside."""
     caps = mp.derive_caps(cfg)
     corner_cap, surf_cap = caps[:2]
     submap_cap = submap_cap or min(16384, 4 * (corner_cap + surf_cap))
@@ -168,8 +170,11 @@ def make_sharded_slam_replay(cfg: SlamConfig, mesh: Mesh,
                 gp, submap_cap, cloud_cap, opt_iters, has_map)
             return odo, ms, (pos, quat)
 
-        return _run_blocks(mesh, xyz.shape[0], one, odo_states, map_states,
-                           xyz, n, dts, accs, gyrs, valid, ts, rp)
+        with trace_scope("parallel.chunk", streams=xyz.shape[0],
+                         K=xyz.shape[1]):
+            return _run_blocks(mesh, xyz.shape[0], one, odo_states,
+                               map_states, xyz, n, dts, accs, gyrs, valid, ts,
+                               rp)
 
     return step, _put(mesh)
 

@@ -2,7 +2,8 @@
 pipeline on the card, write the TUM trajectory, metrics, map export and
 checkpoints, and evaluate ATE/RPE against ground truth when there is one.
 It takes every flag of the reference package's `run_slam.py`, with the
-same meaning and default, and writes the same files and summary keys.
+same meaning and default, and writes the same files and summary keys, and
+also `spans.jsonl`: the run's stage spans (utils/metrics.RECORDER).
 
 Usage:
   python -m lins_tpu_torch.run_slam --synthetic gentle --scans 40 --out out/
@@ -218,7 +219,7 @@ def run(args):
     from lins_tpu_torch.utils import trajectory as traj
     from lins_tpu_torch.utils.device import resolve_device
     from lins_tpu_torch.utils.lazy import to_numpy
-    from lins_tpu_torch.utils.metrics import MetricsLog
+    from lins_tpu_torch.utils.metrics import RECORDER, MetricsLog
 
     device = resolve_device(args.device)
     if args.multihost:
@@ -255,6 +256,7 @@ def run(args):
     compile_s = time.perf_counter() - t_c
 
     log = MetricsLog()
+    RECORDER.clear()
     t0 = time.perf_counter()
     if args.stream or args.checkpoint_every:
         imu_i = 0
@@ -310,6 +312,7 @@ def run(args):
                             slam.odometry, mapper)
             state_save_s = round(time.perf_counter() - t_s, 2)
     log.dump(os.path.join(args.out, "metrics.jsonl"))
+    RECORDER.export(os.path.join(args.out, "spans.jsonl"))
 
     summary = dict(
         scans=len(ts), elapsed_s=round(elapsed, 2),

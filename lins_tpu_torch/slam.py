@@ -20,6 +20,7 @@ from lins_tpu_torch.mapping.mapper import (LinsMapper, imu_roll_pitch,
                                            warm_start)
 from lins_tpu_torch.odometry.estimator import STATUS_RUNNING, LinsOdometry
 from lins_tpu_torch.utils.lazy import LazyRows, to_numpy
+from lins_tpu_torch.utils.metrics import trace_scope
 
 __all__ = ["LinsSlam", "ate_rmse", "imu_roll_pitch", "run_sequence"]
 
@@ -53,28 +54,32 @@ class LinsSlam:
         self.odometry.add_imu(t, acc, gyr)
 
     def add_scan(self, t, xyz, n_points):
-        out = self.odometry.add_scan(t, xyz, n_points)
-        if out is None:
-            return None
-        pos, quat = out
-        if self.mapper is not None:
-            odo, m = self.odometry, self.mapper
-            # the bootstrap scan's pose comes as host arrays
-            pos = torch.as_tensor(pos, dtype=m.dtype, device=m.device)
-            quat = torch.as_tensor(quat, dtype=m.dtype, device=m.device)
-            imu = odo._last_imu
-            rp = (imu_roll_pitch(imu[0], self.cfg.gravity)
-                  if imu is not None else None)
-            self.mapper.process(t, pos, quat, odo.last_corner["xyz"],
-                                odo.last_corner["valid"],
-                                odo.last_surf["xyz"], odo.last_surf["valid"],
-                                odo.last_outlier["xyz"],
-                                odo.last_outlier["valid"], imu_rp=rp)
-            self.mapper.maybe_close_loop(t)
-            # high-rate fused output (transform_fusion_node)
-            pos, quat = warm_start(self.mapper.state, pos, quat)
-        self.trajectory.append((t, pos, quat))
-        return pos, quat
+        """One scan through the odometry, the mapper and the fusion, the
+        span `slam.scan`; returns the fused (pos, quat), or None while the
+        odometry initialises."""
+        with trace_scope("slam.scan", t=float(t)):
+            out = self.odometry.add_scan(t, xyz, n_points)
+            if out is None:
+                return None
+            pos, quat = out
+            if self.mapper is not None:
+                odo, m = self.odometry, self.mapper
+                # the bootstrap scan's pose comes as host arrays
+                pos = torch.as_tensor(pos, dtype=m.dtype, device=m.device)
+                quat = torch.as_tensor(quat, dtype=m.dtype, device=m.device)
+                imu = odo._last_imu
+                rp = (imu_roll_pitch(imu[0], self.cfg.gravity)
+                      if imu is not None else None)
+                self.mapper.process(
+                    t, pos, quat, odo.last_corner["xyz"],
+                    odo.last_corner["valid"], odo.last_surf["xyz"],
+                    odo.last_surf["valid"], odo.last_outlier["xyz"],
+                    odo.last_outlier["valid"], imu_rp=rp)
+                self.mapper.maybe_close_loop(t)
+                # high-rate fused output (transform_fusion_node)
+                pos, quat = warm_start(self.mapper.state, pos, quat)
+            self.trajectory.append((t, pos, quat))
+            return pos, quat
 
     def trajectory_arrays(self):
         ts = np.asarray([t for t, _, _ in self.trajectory])
@@ -105,58 +110,64 @@ class LinsSlam:
                      chunk: int = 24, min_streamed: int = 0):
         """The set-up half of `run_replay`: stream the first scans (until
         the odometry is RUNNING, and at least `min_streamed`), buffer the
-        rest of the IMU, and stage every full chunk on the device.  Returns
-        (jobs for `run_chunk`, indices of the tail scans to stream)."""
-        cfg = self.cfg
-        odo = self.odometry
-        n = n_scans or len(data["scans_xyz"])
-        imu_i, k = 0, 0
-        # 1) stream until RUNNING (bootstrap needs per-scan host logic)
-        while k < n and (k < min_streamed or odo.status != STATUS_RUNNING):
-            t_scan = float(data["scan_times"][k]) + cfg.scan_period
-            while (imu_i < len(data["imu_times"])
-                   and data["imu_times"][imu_i] <= t_scan + 1e-9):
+        rest of the IMU, and stage every full chunk on the device, the span
+        `slam.stage_replay`.  Returns (jobs for `run_chunk`, indices of the
+        tail scans to stream)."""
+        with trace_scope("slam.stage_replay", K=chunk):
+            cfg = self.cfg
+            odo = self.odometry
+            n = n_scans or len(data["scans_xyz"])
+            imu_i, k = 0, 0
+            # 1) stream until RUNNING (bootstrap needs per-scan host logic)
+            while k < n and (k < min_streamed or odo.status != STATUS_RUNNING):
+                t_scan = float(data["scan_times"][k]) + cfg.scan_period
+                while (imu_i < len(data["imu_times"])
+                       and data["imu_times"][imu_i] <= t_scan + 1e-9):
+                    self.add_imu(data["imu_times"][imu_i],
+                                 data["imu_acc"][imu_i],
+                                 data["imu_gyr"][imu_i])
+                    imu_i += 1
+                self.add_scan(t_scan, data["scans_xyz"][k], data["scans_n"][k])
+                k += 1
+            # 2) buffer the remaining IMU, prefetch + replay the rest chunked
+            while imu_i < len(data["imu_times"]):
                 self.add_imu(data["imu_times"][imu_i], data["imu_acc"][imu_i],
                              data["imu_gyr"][imu_i])
                 imu_i += 1
-            self.add_scan(t_scan, data["scans_xyz"][k], data["scans_n"][k])
-            k += 1
-        # 2) buffer the remaining IMU, prefetch + replay the rest chunked
-        while imu_i < len(data["imu_times"]):
-            self.add_imu(data["imu_times"][imu_i], data["imu_acc"][imu_i],
-                         data["imu_gyr"][imu_i])
-            imu_i += 1
-        ks = list(range(k, n))
-        tail = len(ks) % chunk
-        scan_ts = [float(data["scan_times"][j]) + cfg.scan_period for j in ks]
-        rp_all = self._roll_pitch_at(scan_ts) if self.mapper else None
-        chunks = odo.prefetch_chunks(
-            scan_ts, [data["scans_xyz"][j] for j in ks],
-            [data["scans_n"][j] for j in ks], chunk=chunk, with_imu=True)
-        # stage what the mapper needs up front: mapping and loop cadence
-        # flags (host), scan times and IMU roll/pitch per chunk (device)
-        staged = []
-        for ci, (ts, *_) in enumerate(chunks):
-            if self.mapper is None:
-                staged.append(None)
-                continue
-            mf, lf = self.mapper.plan_chunk(ts)
-            # scan times as float32, as the reference stages them
-            ts_dev = torch.as_tensor(np.asarray(ts, np.float32),
-                                     device=odo.device)
-            rp_dev = torch.as_tensor(rp_all[ci * chunk:(ci + 1) * chunk],
-                                     dtype=odo.dtype, device=odo.device)
-            staged.append((ts_dev, mf, lf, rp_dev))
-        if odo.device.type == "cuda":
-            torch.cuda.synchronize(odo.device)
-        return list(zip(chunks, staged)), ks[len(ks) - tail:] if tail else []
+            ks = list(range(k, n))
+            tail = len(ks) % chunk
+            scan_ts = [float(data["scan_times"][j]) + cfg.scan_period
+                       for j in ks]
+            rp_all = self._roll_pitch_at(scan_ts) if self.mapper else None
+            chunks = odo.prefetch_chunks(
+                scan_ts, [data["scans_xyz"][j] for j in ks],
+                [data["scans_n"][j] for j in ks], chunk=chunk, with_imu=True)
+            # stage what the mapper needs up front: mapping and loop cadence
+            # flags (host), scan times and IMU roll/pitch per chunk (device)
+            staged = []
+            for ci, (ts, *_) in enumerate(chunks):
+                if self.mapper is None:
+                    staged.append(None)
+                    continue
+                mf, lf = self.mapper.plan_chunk(ts)
+                # scan times as float32, as the reference stages them
+                ts_dev = torch.as_tensor(np.asarray(ts, np.float32),
+                                         device=odo.device)
+                rp_dev = torch.as_tensor(rp_all[ci * chunk:(ci + 1) * chunk],
+                                         dtype=odo.dtype, device=odo.device)
+                staged.append((ts_dev, mf, lf, rp_dev))
+            if odo.device.type == "cuda":
+                torch.cuda.synchronize(odo.device)
+            return (list(zip(chunks, staged)),
+                    ks[len(ks) - tail:] if tail else [])
 
     def run_chunk(self, job):
         """One staged chunk of `stage_replay`: odometry, then mapping and
-        the fused poses."""
+        the fused poses, the span `slam.chunk`."""
         (ts, xyz_k, n_k, imu), staged = job
-        self.odometry.add_scan_chunk(ts, xyz_k, n_k, imu=imu)
-        self._post_chunk(ts, staged)
+        with trace_scope("slam.chunk", t=float(ts[0]), K=len(ts)):
+            self.odometry.add_scan_chunk(ts, xyz_k, n_k, imu=imu)
+            self._post_chunk(ts, staged)
 
     def _roll_pitch_at(self, scan_ts):
         """Raw-IMU roll/pitch (latest sample <= scan end) per scan, from the

@@ -6,6 +6,8 @@ import dataclasses
 
 import torch
 
+from lins_tpu_torch.utils.metrics import trace_scope
+
 
 def tree_map(fn, tree, *rest):
     """`fn` applied leaf by leaf to one or more containers of the same
@@ -34,14 +36,21 @@ def tree_where(cond, a, b):
     return tree_map(lambda x, y: torch.where(cond.to(x.device), x, y), a, b)
 
 
-def cond(pred: torch.Tensor, branch, keep):
+def cond(pred: torch.Tensor, branch, keep, name: str):
     """`branch()` where the 0-dim bool `pred` holds, else `keep` (the
-    reference package's `lax.cond(pred, branch, identity)`).
+    reference package's `lax.cond(pred, branch, identity)`), inside a span
+    `name` whose `kept` is `pred`.
 
     On the card both sides are computed and selected on the device, so no
-    flag is read back to the host; on the CPU, where the read is free,
-    `branch` runs only when it is taken.
+    flag is read back to the host, and the span of a false `pred` is work
+    computed and discarded; on the CPU, where the read is free, `branch`
+    runs only when it is taken.
     """
+    with trace_scope(name, kept=pred):
+        return _decide(pred, branch, keep)
+
+
+def _decide(pred: torch.Tensor, branch, keep):
     if pred.device.type == "cpu":
         return branch() if bool(pred) else keep
     return select_cond(pred, branch, keep)

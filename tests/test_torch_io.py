@@ -144,10 +144,14 @@ def test_metrics_log(tmp_path):
     assert lines(tmp_path / "t.jsonl") == lines(tmp_path / "j.jsonl")
     assert tlog.summary() == jlog.summary()
     assert tlog.mean("odometry/iters") == 3.0
-    with tmetrics.trace_scope("stage"):
-        pass
-    assert tmetrics.trace_scope.last_ms >= 0
-    assert tmetrics.Stopwatch().toc_ms() >= 0
+    rec = tmetrics.SpanRecorder()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tmetrics, "RECORDER", rec)
+        with tmetrics.trace_scope("stage", iters=torch.tensor(3)):
+            pass
+    (span,) = rec.spans()
+    assert span["name"] == "stage" and span["attrs"] == {"iters": 3}
+    assert span["end_ns"] >= span["start_ns"] and span["parent"] == 0
 
 
 def test_write_ply(tmp_path):

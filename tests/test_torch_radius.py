@@ -197,7 +197,7 @@ def _card_form(mp, preds):
     computed and selected (`tree.select_cond`), its predicate recorded in
     `preds` by module, and the scan-to-map trips never stopping early."""
     for mod in (tmapper, tscan2map):
-        def card_cond(pred, branch, keep, name=mod.__name__):
+        def card_cond(pred, branch, keep, span, name=mod.__name__):
             preds.setdefault(name, []).append(bool(pred))
             return tree.select_cond(pred, branch, keep)
         mp.setattr(mod, "cond", card_cond)

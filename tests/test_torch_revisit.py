@@ -99,7 +99,7 @@ def _card_form(mp, preds):
     recorded by module, and the ICP and scan-to-map trips never stopping
     early."""
     for mod in (tlc, tmapper, tscan2map):
-        def card_cond(pred, branch, keep, name=mod.__name__):
+        def card_cond(pred, branch, keep, span, name=mod.__name__):
             preds.setdefault(name, []).append(bool(pred))
             return tree.select_cond(pred, branch, keep)
         mp.setattr(mod, "cond", card_cond)

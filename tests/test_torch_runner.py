@@ -34,7 +34,8 @@ SUMMARY_KEYS = {"scans", "elapsed_s", "compile_s", "scans_per_sec",
                 "keyframes", "loops", "loops_applied", "state_save_s",
                 "ate_rmse_m", "rpe_m", "ate_kf_m"}
 OUTPUTS = {"trajectory.tum", "trajectory_kf.tum", "metrics.jsonl",
-           "global_map.ply", "final_state.npz", "summary.json"}
+           "global_map.ply", "final_state.npz", "summary.json",
+           "spans.jsonl"}
 BASE = ["--device", "cpu", "--preset", "tiny", "--synthetic", "gentle",
         "--scans", "8", "--no-loop-closure", "--map-format", "ply"]
 

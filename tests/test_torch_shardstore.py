@@ -247,7 +247,7 @@ def test_card_form_replay_sharded_matches_unsharded(replays):
                                  speed=1.5, device="cpu")
     preds = []
 
-    def card_cond(pred, branch, keep):
+    def card_cond(pred, branch, keep, span):
         preds.append(bool(pred))
         return tree.select_cond(pred, branch, keep)
 

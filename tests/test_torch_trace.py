@@ -1,0 +1,362 @@
+"""The port's span recorder (`utils/metrics.RECORDER`, `trace_scope`) and
+the spans at the stage boundaries: ids, roots and scan indices on a TINY
+replay and on streaming, the ring's bound, device attributes read only at
+export, the `kept` flags and the discarded time with the card's form of
+every branch, and the benchmark's seven readers of the spans on TINY
+traced runs.  The `cuda` test runs a warm VLP-16 chunk on the card with
+the recorder recording and counts its host syncs.  This file imports
+neither JAX nor the reference package:
+
+    python -m pytest --noconftest tests/test_torch_trace.py -q
+"""
+import json
+import warnings
+
+import numpy as np
+import pytest
+import torch
+from torch.overrides import TorchFunctionMode
+
+from benchmark import harness
+from benchmark.layer_metrics import _program
+from benchmark.tests.tiny import run_tiny, tiny_cell
+from lins_tpu_torch.config import TINY
+from lins_tpu_torch.datasets import synthetic as syn
+from lins_tpu_torch.graph import loop_closure
+from lins_tpu_torch.mapping import scan2map
+from lins_tpu_torch.odometry import gn_icp, ieskf
+from lins_tpu_torch.slam import LinsSlam, run_sequence
+from lins_tpu_torch.utils import metrics, tree
+
+# the port's CPU tests run many tiny ops: one intra-op thread each, so the
+# test workers that share the cores do not oversubscribe them
+torch.set_num_threads(1)
+
+CHUNK = 4
+N_SCANS = 16
+F64 = torch.float64
+# the spans the seven readers read, by reader
+READS = {"odometry.frontend_ms_per_scan.replay": "odometry.frontend",
+         "odometry.ieskf_ms_per_scan.replay": "odometry.ieskf",
+         "mapper.ms_per_step.replay": "mapper.step",
+         "loop.ms_per_attempt.replay": "loop.attempt",
+         "loop.ms_per_attempt.live": "loop.attempt",
+         "dispatch.discarded_ms_per_scan.replay": None,
+         "dispatch.discarded_ms_per_scan.live": None}
+# the fixed-trip loops and their trips on the card
+LOOPS = {"odometry.ieskf": TINY.num_iter, "odometry.gn_icp": TINY.num_iter,
+         "mapper.scan_to_map": TINY.scan2map_iters,
+         "loop.icp": TINY.loop_icp_iters}
+
+
+@pytest.fixture(scope="module")
+def data():
+    return syn.generate_sequence(TINY, n_scans=N_SCANS, kind="gentle",
+                                 speed=1.5, device="cpu")
+
+
+def _recorded(fn):
+    """The spans `fn()` records in a fresh recorder."""
+    rec = metrics.SpanRecorder()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(metrics, "RECORDER", rec)
+        fn()
+    return rec.spans()
+
+
+def _card_form(mp):
+    """Every branch computed and selected, every fixed-trip loop running
+    all its trips, as on the card."""
+    mp.setattr(tree, "_decide", tree.select_cond)
+    for mod in (ieskf, gn_icp, scan2map, loop_closure):
+        mp.setattr(mod, "may_stop", lambda active: False)
+
+
+@pytest.fixture(scope="module")
+def replay_spans(data):
+    return _recorded(lambda: LinsSlam(TINY, device="cpu", dtype=F64)
+                     .run_replay(data, chunk=CHUNK))
+
+
+@pytest.fixture(scope="module")
+def card_run(data):
+    """(the spans, the LinsSlam) of the TINY replay in the card's form."""
+    out = {}
+    with pytest.MonkeyPatch.context() as mp:
+        _card_form(mp)
+        out["spans"] = _recorded(lambda: out.setdefault(
+            "slam", LinsSlam(TINY, device="cpu", dtype=F64)
+            .run_replay(data, chunk=CHUNK)))
+    return out["spans"], out["slam"]
+
+
+def _check_tree(spans):
+    """Each span lies inside its parent, and carries its parent's root."""
+    by_id = {s["id"]: s for s in spans}
+    for s in spans:
+        assert s["start_ns"] <= s["end_ns"]
+        if s["parent"] == 0:
+            assert s["root"] == s["id"]
+            continue
+        p = by_id[s["parent"]]
+        assert s["root"] == p["root"]
+        assert p["start_ns"] <= s["start_ns"] and s["end_ns"] <= p["end_ns"]
+        if p["scan"] is not None:
+            assert s["scan"] == p["scan"]
+    return by_id
+
+
+def test_replay_ids_roots_and_scan_index(replay_spans):
+    by_id = _check_tree(replay_spans)
+    # roots: the staging, each chunk, each tail scan streamed after them
+    roots = {s["name"] for s in replay_spans if s["parent"] == 0}
+    assert roots == {"slam.stage_replay", "slam.chunk", "slam.scan"}
+    chunks = [s for s in replay_spans if s["name"] == "slam.chunk"]
+    assert chunks and all(c["attrs"]["K"] == CHUNK for c in chunks)
+    for c in chunks:
+        inside = [s for s in replay_spans if s["root"] == c["id"]]
+        names = {s["name"] for s in inside}
+        assert {"odometry.chunk", "mapper.chunk", "odometry.step",
+                "odometry.ieskf", "odometry.fallback"} <= names
+        # one per-scan odometry step per scan, indexed 0..K-1, and each
+        # IESKF update inside its scan's step
+        steps = [s for s in inside if s["name"] == "odometry.step"]
+        assert [s["scan"] for s in steps] == list(range(CHUNK))
+        for s in inside:
+            if s["name"] == "odometry.ieskf":
+                assert by_id[s["parent"]]["name"] == "odometry.step"
+            if s["name"] in ("mapper.step", "loop.attempt"):
+                assert by_id[s["parent"]]["name"] == "mapper.chunk"
+                assert 0 <= s["scan"] < CHUNK
+    # the bootstrap's scans are streamed inside the staging
+    stage = next(s for s in replay_spans if s["name"] == "slam.stage_replay")
+    assert any(s["name"] == "slam.scan" and s["parent"] == stage["id"]
+               for s in replay_spans)
+
+
+def test_streaming_ids_roots(data):
+    spans = _recorded(lambda: run_sequence(
+        LinsSlam(TINY, device="cpu", dtype=F64), data, n_scans=12))
+    _check_tree(spans)
+    roots = [s for s in spans if s["parent"] == 0]
+    assert [s["name"] for s in roots] == ["slam.scan"] * 12
+    assert len({s["root"] for s in spans}) == 12
+    assert all(s["scan"] is None for s in spans)
+    names = {s["name"] for s in spans}
+    assert {"odometry.frontend", "odometry.ieskf", "odometry.gn_icp",
+            "mapper.step", "mapper.scan_to_map", "loop.attempt"} <= names
+
+
+def test_ring_bound_and_dropped():
+    rec = metrics.SpanRecorder(capacity=4)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(metrics, "RECORDER", rec)
+        for i in range(10):
+            with metrics.trace_scope("a" if i % 2 else "b", i=i):
+                pass
+    assert len(rec.ring) == 4 and rec.dropped == 6
+    assert [s["attrs"]["i"] for s in rec.spans()] == [6, 7, 8, 9]
+    assert {k: v[0] for k, v in rec.totals.items()} == {"a": 5, "b": 5}
+    rec.clear()
+    assert not rec.ring and rec.dropped == 0 and not rec.totals
+
+
+class _Ops(TorchFunctionMode):
+    """Every torch function and tensor method called inside."""
+
+    def __init__(self):
+        super().__init__()
+        self.calls = []
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        self.calls.append(func)
+        return func(*args, **(kwargs or {}))
+
+
+def test_device_attributes_read_at_export_in_one_read(monkeypatch):
+    """Recording touches no tensor; `spans()` reads every tensor attribute
+    with one stack and one copy per device."""
+    rec = metrics.SpanRecorder()
+    monkeypatch.setattr(metrics, "RECORDER", rec)
+    flags = [torch.tensor(True), torch.tensor(7, dtype=torch.int32),
+             torch.tensor(2.5, dtype=F64)]
+    ops = _Ops()
+    with ops:
+        with metrics.trace_scope("outer", kept=flags[0], n=3) as span:
+            with metrics.trace_scope("inner", live=flags[1]):
+                pass
+            span["x"] = flags[2]
+    assert ops.calls == []
+    reads = []
+    inner = metrics._read
+    monkeypatch.setattr(metrics, "_read",
+                        lambda ts: reads.append(len(ts)) or inner(ts))
+    stacks = []
+    stack = torch.stack
+    monkeypatch.setattr(torch, "stack",
+                        lambda ts, *a, **k: stacks.append(1) or stack(ts))
+    got = rec.spans()
+    assert reads == [3] and len(stacks) == 1
+    assert [s["attrs"] for s in got] == [{"live": 7},
+                                         {"kept": True, "n": 3, "x": 2.5}]
+    assert type(got[1]["attrs"]["kept"]) is bool
+    assert type(got[0]["attrs"]["live"]) is int
+
+
+def test_card_cond_adds_no_operation(monkeypatch):
+    """`cond` in the card's form calls what `select_cond` calls, no more."""
+    pred = torch.tensor(False)
+    keep = (torch.zeros(3), torch.ones(2))
+
+    def branch():
+        return keep[0] + 1, keep[1] * 2
+
+    alone, spanned = _Ops(), _Ops()
+    with alone:
+        tree.select_cond(pred, branch, keep)
+    monkeypatch.setattr(tree, "_decide", tree.select_cond)
+    with spanned:
+        tree.cond(pred, branch, keep, "probe")
+    assert spanned.calls == alone.calls
+
+
+def test_discarded_sum_counts_each_piece_once():
+    """A dropped branch counts whole, its inner spans not again; a loop's
+    frozen share is taken of its self time, less its branches."""
+    def span(sid, parent, ns, **attrs):
+        return dict(name=f"s{sid}", id=sid, parent=parent, root=1, scan=None,
+                    start_ns=0, end_ns=ns, attrs=attrs)
+
+    spans = [span(1, 0, 1000),
+             span(2, 1, 300, kept=False),               # 300
+             span(3, 2, 100, kept=False),               # inside 2: 0
+             span(4, 2, 100, trips=10, live=2),         # inside 2: 0
+             span(5, 1, 400, trips=10, live=6),         # (400 - 150) * 0.4
+             span(6, 5, 100, kept=True),                # kept: 0
+             span(7, 5, 50, kept=False)]                # 50
+    assert _program.discarded_ns(spans) == pytest.approx(300 + 100 + 50)
+
+
+def test_card_form_kept_flags_and_discarded(card_run, replay_spans):
+    spans, slam = card_run
+    _check_tree(spans)
+    conds = [s for s in spans if "kept" in s["attrs"]]
+    assert {s["name"] for s in conds} >= {
+        "odometry.fallback", "mapper.keyframe_add", "mapper.window_rebuild",
+        "mapper.regather", "loop.align", "loop.solve"}
+    assert all(type(s["attrs"]["kept"]) is bool for s in conds)
+    assert any(s["attrs"]["kept"] for s in conds)
+    assert not all(s["attrs"]["kept"] for s in conds)
+    # every fixed-trip loop ran all its trips; `live` is the loop's count
+    for s in spans:
+        if s["name"] in LOOPS:
+            assert s["attrs"]["trips"] == LOOPS[s["name"]], s
+            if s["name"] != "loop.icp":
+                assert 0 < s["attrs"]["live"] <= s["attrs"]["trips"]
+    # one IESKF update a RUNNING scan, streamed or chunked
+    lives = [s["attrs"]["live"] for s in spans if s["name"] == "odometry.ieskf"]
+    assert lives == [int(m["iters"]) for m in slam.odometry.metrics]
+    # a step's n_refresh is the re-gathers its scan-to-map kept
+    for s in spans:
+        if s["name"] == "mapper.step":
+            s2m = [c for c in spans if c["parent"] == s["id"]
+                   and c["name"] == "mapper.scan_to_map"]
+            kept = [c for c in spans if s2m and c["parent"] == s2m[0]["id"]
+                    and c["attrs"].get("kept")]
+            assert s["attrs"]["n_refresh"] == len(kept)
+    # the discarded time: some, less than the run's; on the CPU's taken
+    # branches no frozen trip runs, so only branches not taken (their
+    # spans all but empty) count
+    run_ns = sum(s["end_ns"] - s["start_ns"] for s in spans
+                 if s["parent"] == 0)
+    card = _program.discarded_ns(spans)
+    assert 0 < card < run_ns
+    taken = _program.discarded_ns(replay_spans)
+    dropped = sum(s["end_ns"] - s["start_ns"] for s in replay_spans
+                  if s["attrs"].get("kept") is False)
+    assert taken == pytest.approx(dropped)
+    assert all(s["attrs"]["trips"] == s["attrs"]["live"]
+               for s in replay_spans if "live" in s["attrs"])
+
+
+def _traced(cell, mp):
+    """A TINY `--trace 1` run of the cell and the Trace its readers got."""
+    made = []
+
+    class Trace(harness.Trace):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            made.append(self)
+
+    mp.setattr(harness, "Trace", Trace)
+    res, _ = run_tiny(tiny_cell(cell), trace=1)
+    return res, made[0]
+
+
+@pytest.mark.parametrize("cell", ["vlp16-replay", "vlp16-live"])
+def test_readers_read_the_window(cell):
+    rec = metrics.SpanRecorder()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(metrics, "RECORDER", rec)
+        res, trace = _traced(cell, mp)
+    mine = [m["name"] for m in tiny_cell(cell).per_layer
+            if m["name"] in READS]
+    assert len(mine) == (5 if cell == "vlp16-replay" else 2)
+    window = _program.window_spans(trace)
+    assert window and len(window) < len(rec.ring)
+    names = {s["name"] for s in window}
+    for name in mine:
+        value = harness.load_reader(name).read(trace)
+        if READS[name] is None or READS[name] in names:
+            assert value is not None and value > 0, name
+            assert res["metrics"][name]["value"] == value
+        else:
+            assert value is None and name not in res["metrics"], name
+    # a port that records no spans: every reader reads nothing
+    trace.program_spans = None
+    with pytest.MonkeyPatch.context() as mp:
+        mp.delattr(metrics, "RECORDER")
+        for name in mine:
+            assert harness.load_reader(name).read(trace) is None
+
+
+@pytest.mark.cuda
+def test_warm_chunk_records_with_no_host_sync():
+    """A warm VLP-16 chunk (K = 32) on the card under PyTorch's sync debug
+    mode, as `chip_smoke.count_host_syncs` runs it: no host sync with the
+    recorder recording, and its spans read back after."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from lins_tpu_torch.config import VLP16
+
+    cfg = VLP16.replace(max_points=28800, use_pallas=True,
+                        use_pallas_select=True)
+    data = syn.generate_sequence(cfg, n_scans=6 + 2 * 32, kind="gentle",
+                                 speed=1.5)
+    slam = LinsSlam(cfg)
+    slam.warmup()
+    jobs, _ = slam.stage_replay(data, chunk=32, min_streamed=6)
+    slam.run_chunk(jobs[0])
+    torch.cuda.synchronize()
+    rec = metrics.SpanRecorder()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(metrics, "RECORDER", rec)
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                slam.run_chunk(jobs[1])
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+    syncs = [w for w in seen if "called a synchronizing" in str(w.message)]
+    assert syncs == []
+    spans = rec.spans()
+    names = {s["name"] for s in spans}
+    assert {"slam.chunk", "odometry.ieskf", "odometry.fallback",
+            "mapper.step", "mapper.regather", "loop.attempt"} <= names
+    trips = [s["attrs"]["trips"] for s in spans
+             if s["name"] == "odometry.ieskf"]
+    assert trips == [cfg.num_iter] * 32
+    json.dumps(spans)
+    assert np.isfinite([s["end_ns"] - s["start_ns"] for s in spans]).all()
