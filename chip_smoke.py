@@ -45,14 +45,14 @@ Phases, in order; any failure exits non-zero:
                  enable_mapping=False).run_replay over a synthetic gentle
                  sequence (6 + 2x32 scans at 1.5 m/s): label launches (and
                  K1's by scans a launch, for its lost time),
-                 K4 and K5 launches (>= 2 x num_iter per RUNNING scan: the
-                 IESKF trips and the GN fallback's), finite poses, odometry
+                 K4 and K5 launches (one per trip the odometry's spans
+                 issued, at least one per RUNNING scan), finite poses, odometry
                  ATE <= 0.25 m, no plain labelling or association (on every
                  path);
                  in the same run, scans/s timed as bench.py times it
                  (chunks 1-3 after a warm chunk 0, synchronize fences), the
-                 warm chunk's host syncs (PyTorch's sync debug mode), peak
-                 memory
+                 warm chunk's host syncs by site (PyTorch's sync debug
+                 mode), peak memory
   5. mapping     window, no loop attempts: the same with the mapping
                  backend (use_pallas_select=True, loop_attempts=False) over
                  the same scans: K3 launches (>= 2 per mapping
@@ -97,16 +97,19 @@ Phases, in order; any failure exits non-zero:
                  loop_closure_enabled=False over the same scans:
                  the selection changed and the window was rebuilt at least
                  twice (each step's selection recorded on the card), no
-                 loop attempt, K1, K3 and K4/K5 launches, no host sync in
-                 the warm chunk, fused ATE <= the odometry ATE of the same
+                 loop attempt, K1, K3 and K4/K5 launches, the warm chunk's
+                 host syncs only the odometry's reads (as many as its spans'
+                 `reads`; none in the front end, the mapper or the loop
+                 closure), fused ATE <= the odometry ATE of the same
                  scans and <= 0.25 m
      path H-radius  path H with lc_map_mode="radius": the same checks as
                  path H against the JAX package's ATE over the radius map
      path E      the window path in the "exact" feature mode (the
                  reference's greedy picking): the odometry ATE of the same
                  run <= 0.25 m, fused ATE <= it and <= the JAX package's
-                 exact-mode fused ATE + 0.05 m, no host sync in the warm
-                 chunk, scans/s beside the window path's
+                 exact-mode fused ATE + 0.05 m, the warm chunk's host syncs
+                 only the odometry's reads, scans/s beside the window
+                 path's
      path H-sparse  path H with max_keyframes=2048: every loop attempt's
                  solve (computed and selected on the card) is the sparse
                  optimize_cg and no dense optimize runs; path H's gates
@@ -115,8 +118,9 @@ Phases, in order; any failure exits non-zero:
      path HS-shard  path H-sparse with slam.mapper.shard_store_over(a mesh
                  of 4 parts of the card): path H-sparse's gates, the same
                  loops, keyframes and edges, every fused pose within 1e-5 m
-                 and 1e-6 of |dot| of path H-sparse's, no host sync in the
-                 warm chunk, each cloud field in 4 parts of 512 rows; then
+                 and 1e-6 of |dot| of path H-sparse's, the warm chunk's host
+                 syncs only the odometry's reads, each cloud field in 4
+                 parts of 512 rows; then
                  the seams at full width: a 2048-slot HDL-64 store filled
                  past the ring's wrap, sharded over 4 parts of the card,
                  whose assemble_local_map, rebuild_window and loop_clouds
@@ -130,7 +134,8 @@ Phases, in order; any failure exits non-zero:
                  mesh: 4 distinct VLP-16 streams (the gentle trajectory at
                  four speeds) in path V's config, 6 streamed + 32 scans
                  each, each stream's fused poses within 1e-4 m of its own
-                 LinsSlam chunk in this process, no host sync, batched
+                 LinsSlam chunk in this process, host syncs only the
+                 odometry's reads (batched and each stream's own), batched
                  scans/s beside one stream at a time, peak memory
   6. profiles    under torch.profiler, after every timing: one streamed
                  RUNNING scan and each of its stages; one mapping step and
@@ -477,9 +482,9 @@ def stage_breakdown(odo, xyz, n_points):
         ls, lc, dt))
     stage("K4 + K5, one IESKF trip", lambda: assoc.scan_normal_equations(
         flat, sharp, *refs, prop.rn, prop.qbn, 1, cfg, "ieskf"))
-    stage(f"ieskf.update, {cfg.num_iter} trips", lambda: ieskf.update(
+    stage("ieskf.update, to its stop", lambda: ieskf.update(
         prop, feats.flat, feats.sharp, ls, lc, cfg))
-    stage(f"GN fallback, {cfg.num_iter} trips",
+    stage("GN fallback, to its stop",
           lambda: gn_icp.estimate_transform(prop.rn, prop.qbn, feats.flat,
                                             feats.sharp, ls, lc, cfg))
     stage("running step, whole", lambda: running_step_impl(
@@ -599,6 +604,50 @@ def count_host_syncs():
             yield sites
         finally:
             torch.cuda.set_sync_debug_mode("default")
+
+
+# the sites of the odometry's host reads (its loops' stops, the fallback's
+# flag) in `count_host_syncs`' form
+ODOMETRY_READ_SITES = ("/odometry/ieskf.py:", "/odometry/gn_icp.py:",
+                       "/odometry/estimator.py:")
+
+
+@contextlib.contextmanager
+def record_spans():
+    """The port's spans recorded inside the block in a recorder of its own
+    (utils/metrics.RECORDER swapped), as the list yielded, filled with
+    their attributes read once the block has ended."""
+    from lins_tpu_torch.utils import metrics
+
+    rec = metrics.SpanRecorder(capacity=1 << 20)
+    saved, metrics.RECORDER = metrics.RECORDER, rec
+    spans = []
+    try:
+        yield spans
+    finally:
+        metrics.RECORDER = saved
+    check(rec.dropped == 0, "no span dropped")
+    spans.extend(rec.spans())
+
+
+def check_reads(sites, spans, what):
+    """The host syncs of `what` (`count_host_syncs`' sites): every one at
+    the odometry's read sites, as many as the `reads` of its spans; the
+    front end, the mapper and the loop closure make none."""
+    reads = sum(s["attrs"].get("reads", 0) for s in spans)
+    syncs = sum(sites.values())
+    elsewhere = {site: n for site, n in sites.items()
+                 if not site.startswith(ODOMETRY_READ_SITES)}
+    check(not elsewhere and syncs == reads,
+          f"{what}: {syncs} host syncs, all at the odometry's reads, as "
+          f"many as its spans' {reads} reads"
+          + (f"; elsewhere {elsewhere}" if elsewhere else ""))
+
+
+def odometry_trips(spans):
+    """The trips the odometry's IESKF and GN spans issued."""
+    return sum(s["attrs"]["trips"] for s in spans
+               if s["name"] in ("odometry.ieskf", "odometry.gn_icp"))
 
 
 def phase_device():
@@ -2021,15 +2070,15 @@ def _counts():
                 k5_plain=assoc.corner_normal_equations_plain.calls)
 
 
-def check_assoc(counts, cfg, n_scans):
-    """K4 and K5 took every trip of the run's RUNNING scans: at least the
-    IESKF's and the GN fallback's num_iter trips each (on the card every
-    trip runs and the fallback is computed every scan), and no plain
-    association ran."""
-    need = 2 * cfg.num_iter * (n_scans - 2)
-    check(counts["k4"] >= need and counts["k5"] >= need,
-          f"K4 launched {counts['k4']} and K5 {counts['k5']} times >= "
-          f"{need} (2 x {cfg.num_iter} trips x {n_scans - 2} RUNNING scans)")
+def check_assoc(r, n_scans):
+    """K4 and K5 took every trip the run's odometry issued, one launch a
+    trip of its IESKF and GN spans (the IESKF at least once a RUNNING
+    scan), and no plain association ran."""
+    counts, trips = r["counts"], r["odometry_trips"]
+    check(counts["k4"] == counts["k5"] == trips >= n_scans - 2,
+          f"K4 launched {counts['k4']} and K5 {counts['k5']} times = the "
+          f"{trips} trips of the odometry's spans >= {n_scans - 2} RUNNING "
+          f"scans ({trips / (n_scans - 2):.2f} a scan)")
     check(counts["k4_plain"] == 0 and counts["k5_plain"] == 0,
           "no plain association on the card")
 
@@ -2041,11 +2090,14 @@ def replay(slam, data, n_scans=None):
     bench.py times them (bench_slam with mapping, the odometry loop
     without).  The kernel counts are set to 0 just before the run and read
     just after; the peak memory is the run's, and counts what earlier runs
-    still hold (held_bytes, allocated when the run starts).  Returns a
-    dict: wall s, chunk_s, rate (scans/s over the timed chunks), syncs and
-    sites (chunk 0's host syncs by call site), counts, peak_bytes,
-    held_bytes."""
+    still hold (held_bytes, allocated when the run starts).  The run's
+    spans are recorded apart.  Returns a dict: wall s, chunk_s, rate
+    (scans/s over the timed chunks), syncs and sites (chunk 0's host syncs
+    by call site), warm_spans (chunk 0's spans), odometry_trips (the run's),
+    counts, peak_bytes, held_bytes."""
     import torch
+
+    from lins_tpu_torch.utils import metrics
 
     inner = slam.run_chunk
     chunk_s, sites = [], collections.Counter()
@@ -2054,8 +2106,10 @@ def replay(slam, data, n_scans=None):
         torch.cuda.synchronize()
         if not run_chunk.warm_done:
             run_chunk.warm_done = True
+            run_chunk.warm_from = metrics.RECORDER._last_id
             with count_host_syncs() as s:
                 inner(job)
+            run_chunk.warm_to = metrics.RECORDER._last_id
             sites.update(s)
             torch.cuda.synchronize()
             return
@@ -2072,16 +2126,20 @@ def replay(slam, data, n_scans=None):
     _reset_counts()
     t0 = time.perf_counter()
     try:
-        slam.run_replay(data, n_scans=n_scans, chunk=K_CHUNK)
-        torch.cuda.synchronize()
+        with record_spans() as spans:
+            slam.run_replay(data, n_scans=n_scans, chunk=K_CHUNK)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = _counts()
     finally:
         del slam.run_chunk
-    wall = time.perf_counter() - t0
-    counts = _counts()
     check(chunk_s, "at least one timed chunk after the warm one")
     return dict(wall=wall, chunk_s=chunk_s,
                 rate=len(chunk_s) * K_CHUNK / sum(chunk_s),
-                syncs=sum(sites.values()), sites=sites, counts=counts,
+                syncs=sum(sites.values()), sites=sites,
+                warm_spans=[s for s in spans if run_chunk.warm_from < s["id"]
+                            <= run_chunk.warm_to],
+                odometry_trips=odometry_trips(spans), counts=counts,
                 peak_bytes=torch.cuda.max_memory_allocated(),
                 held_bytes=held)
 
@@ -2182,7 +2240,7 @@ def phase_odometry(cfg, data):
           f"K1 launched {counts['label']} times >= {n_chunks} chunks")
     check(counts["label_plain"] == 0 and counts["label_blocked"] == 0,
           "no plain labelling and no K2 at 16 rows")
-    check_assoc(counts, cfg, N_SCANS)
+    check_assoc(r, N_SCANS)
     check(bool(np.isfinite(ps).all() and np.isfinite(qs).all()),
           "every pose finite")
     err = ate(ps, data["gt_pos"][1:1 + len(ps)], align=True)
@@ -2214,7 +2272,7 @@ def phase_mapping(cfg, data, odo_ps):
     check(counts["select_plain"] == 0, "no plain selection on the card")
     check(counts["label"] > 0 and counts["label_plain"] == 0,
           f"K1 launched {counts['label']} times, no plain labelling")
-    check_assoc(counts, cfg, N_SCANS_WINDOW)
+    check_assoc(r, N_SCANS_WINDOW)
     check(bool(np.isfinite(ps).all() and np.isfinite(qs).all()),
           "every fused pose finite")
     gt = data["gt_pos"][1:1 + len(ps)]
@@ -2246,7 +2304,7 @@ def phase_path_v(cfg, data):
           "K3 launched in every attempt (the polish, computed and selected)")
     check(counts["select_plain"] == 0 and counts["label_plain"] == 0,
           "no plain selection or labelling on the card")
-    check_assoc(counts, cfg, N_SCANS)
+    check_assoc(r, N_SCANS)
     check(bool(np.isfinite(ps).all() and np.isfinite(qs).all()),
           "every fused pose finite")
     err = ate(ps, data["gt_pos"][1:1 + len(ps)], align=True)
@@ -2318,8 +2376,8 @@ def phase_path_r(cfg, data, odo_ps):
     check(counts["label"] > 0 and counts["label_plain"] == 0
           and counts["label_blocked"] == 0,
           f"K1 launched {counts['label']} times, no plain labelling")
-    check_assoc(counts, cfg, N_SCANS_WINDOW)
-    check(r["syncs"] == 0, "no host sync in the warm chunk")
+    check_assoc(r, N_SCANS_WINDOW)
+    check_reads(r["sites"], r["warm_spans"], "the warm chunk")
     check(bool(np.isfinite(ps).all() and np.isfinite(qs).all()),
           "every fused pose finite")
     gt = data["gt_pos"][1:1 + len(ps)]
@@ -2375,7 +2433,7 @@ def phase_path_h(cfg, data, what="path H", ref_ate=REF_FUSED_ATE_H_M,
     check(counts["label"] == 0 and counts["label_plain"] == 0
           and counts["label_blocked_plain"] == 0,
           "no K1 and no plain labelling at 64 rows")
-    check_assoc(counts, cfg, N_SCANS_H)
+    check_assoc(r, N_SCANS_H)
     check(counts["select"] > 0 and all(n >= 1 for n in in_loops)
           and counts["select_plain"] == 0,
           f"K3 launched {counts['select']} times, in every loop attempt, "
@@ -2776,8 +2834,8 @@ def phase_path_e(cfg, data, window_rate):
           f"against a map ({n_gn} steps), no plain selection")
     check(counts["label"] > 0 and counts["label_plain"] == 0,
           f"K1 launched {counts['label']} times, no plain labelling")
-    check_assoc(counts, cfg, N_SCANS_WINDOW)
-    check(r["syncs"] == 0, "no host sync in the warm chunk")
+    check_assoc(r, N_SCANS_WINDOW)
+    check_reads(r["sites"], r["warm_spans"], "the warm chunk")
     check(bool(np.isfinite(ps).all() and np.isfinite(qs).all()),
           "every fused pose finite")
     gt = data["gt_pos"][1:1 + len(ps)]
@@ -2964,7 +3022,7 @@ def phase_path_hs_shard(cfg, data, hs):
           f"path H-sparse's, quaternion |dot| >= {dq:.9f} (>= 1 - "
           f"{SHARD_QUAT_TOL}); {n_equal} of {len(r['ps'])} positions equal "
           f"bit for bit")
-    check(r["syncs"] == 0, f"{r['syncs']} host syncs in the warm chunk")
+    check_reads(r["sites"], r["warm_spans"], "the warm chunk")
     log(f"  {r['rate']:.3f} scans/s against path H-sparse's "
         f"{hs['rate']:.3f} ({r['rate'] / hs['rate']:.3f}x); peak above the "
         f"run's start {(r['peak_bytes'] - r['held_bytes']) / 2**20:.1f} MiB "
@@ -3222,11 +3280,11 @@ def phase_multi_stream(cfg):
     held = torch.cuda.memory_allocated()
     _reset_counts()
     t0 = time.perf_counter()
-    with count_host_syncs() as sites:
+    with record_spans() as batch_spans, count_host_syncs() as sites:
         _, _, (pos, quat) = step(*put((odo, maps)), *put(chunk), *put(imu),
                                  put(ts), put(rpy), mf, lf, has_map=True)
         torch.cuda.synchronize()
-    batch_s = time.perf_counter() - t0
+        batch_s = time.perf_counter() - t0
     counts = _counts()
     peak = torch.cuda.max_memory_allocated()
     syncs = sum(sites.values())
@@ -3234,17 +3292,16 @@ def phase_multi_stream(cfg):
     for b, (data, slam, job) in enumerate(streams):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        with count_host_syncs() as s1:
+        with record_spans() as spans1, count_host_syncs() as s1:
             slam.run_chunk(job)
             torch.cuda.synchronize()
-        single_s.append(time.perf_counter() - t0)
+            single_s.append(time.perf_counter() - t0)
         _, ps, qs = slam.trajectory_arrays()
         got = pos[b].cpu().numpy()
         diffs.append(float(np.abs(got - ps[-K_CHUNK:]).max()))
         equal &= bool((got == ps[-K_CHUNK:]).all()
                       and (quat[b].cpu().numpy() == qs[-K_CHUNK:]).all())
-        check(sum(s1.values()) == 0,
-              f"stream {b}: no host sync in its own chunk")
+        check_reads(s1, spans1, f"stream {b}'s own chunk")
         full = np.concatenate([ps[:-K_CHUNK], got])
         errs.append(ate(full, data["gt_pos"][1:1 + len(full)], align=True))
     log(f"  batch of {B}: {B * K_CHUNK} scans in {batch_s:.3f} s "
@@ -3258,7 +3315,7 @@ def phase_multi_stream(cfg):
           f"each stream's fused poses within {STREAM_TOL_M} m of its own "
           f"run: max {max(diffs):.2e} m ("
           + ("bit for bit" if equal else "not bit for bit") + ")")
-    check(syncs == 0, "no host sync in the batched chunk")
+    check_reads(sites, batch_spans, "the batched chunk")
     check(max(errs) <= ATE_LIMIT_M and len({round(e, 6) for e in errs}) == B,
           f"distinct streams, every fused ATE <= {ATE_LIMIT_M} m")
     return dict(rate=B * K_CHUNK / batch_s,

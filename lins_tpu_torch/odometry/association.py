@@ -68,7 +68,8 @@ def _masked_argmin(d, mask):
 
 def _weight(iter_count: int, w, cfg):
     """s = w from the icp_freq-th iteration on, else 1.  The iteration
-    count is a host int: the loops run fixed trips (odometry/ieskf.py)."""
+    count is a host int: the loops count their trips on the host
+    (odometry/ieskf.py)."""
     return w if iter_count >= cfg.icp_freq else torch.ones_like(w)
 
 

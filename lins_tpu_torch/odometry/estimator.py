@@ -4,10 +4,14 @@ Estimator.cpp:204-284).
 
 A host-side driver streams pre-decoded arrays.  The RUNNING-state step
 (propagation -> IESKF -> GN fallback -> composition -> re-anchoring) reads
-nothing back to the host, so a chunk of scans is enqueued on the card
-without a synchronisation: the data-dependent loops run fixed trips
-(odometry/ieskf.py) and the divergence fallback is computed and selected
-on the device.  The whole engine stays in XYZ.
+back to the host only the flags of its data-dependent control flow: the
+IESKF's and the GN's stop before each trip (odometry/ieskf.py, gn_icp.py),
+and with the IESKF's last flags whether it diverged, so the GN fallback is
+issued only on the scans that take it.  On the card each read waits for
+the work before it; a frozen trip or a fallback never kept would cost
+milliseconds of host issue, a read tens of µs.  Everything else stays on
+the device: the feature-count gate and the re-anchoring are selected
+there.  The whole engine stays in XYZ.
 """
 from __future__ import annotations
 
@@ -30,7 +34,7 @@ from lins_tpu_torch.ops.label import label_components
 from lins_tpu_torch.utils.device import resolve_device, resolve_dtype
 from lins_tpu_torch.utils.lazy import ChunkMetrics, LazyRows, to_numpy
 from lins_tpu_torch.utils.metrics import trace_scope
-from lins_tpu_torch.utils.tree import cond, tree_where
+from lins_tpu_torch.utils.tree import tree_where
 
 STATUS_INIT = 0
 STATUS_FIRST_SCAN = 1
@@ -83,6 +87,15 @@ def _reanchored(fc, rel_rn, rel_qbn, dtype):
                 ring=fc.ring, valid=fc.valid)
 
 
+def fallback_or_keep(res: ieskf.IESKFResult, fallback):
+    """`fallback()` where the IESKF diverged, else its state, inside the
+    span `odometry.fallback` whose `kept` is the divergence.  Decided by
+    `res.diverged_read`, the host's copy of the flag that the IESKF's last
+    read brought, so it makes no read of its own (`reads` 0)."""
+    with trace_scope("odometry.fallback", kept=res.diverged_read, reads=0):
+        return fallback() if res.diverged_read else res.state
+
+
 def running_step_impl(filter_state: eskf.FilterState,
                       global_state: NominalState,
                       feats: ScanFeatures, last_surf, last_corner,
@@ -109,15 +122,14 @@ def running_step_impl(filter_state: eskf.FilterState,
                        cfg, refs=refs)
 
     # 4) divergence fallback: GN ICP from the propagated pose
-    #    (StateEstimator.hpp:585-592).  On the card it is computed every
-    #    scan and selected on the device; on the CPU only when needed.
+    #    (StateEstimator.hpp:585-592), issued only when the IESKF diverged
     def fallback():
         rn, qbn, _ = gn_icp.estimate_transform(
             fs.rn, fs.qbn, feats.flat, feats.sharp, last_surf, last_corner,
             cfg, refs=refs)
         return res.state._replace(rn=rn, qbn=qbn, P=fs.P)
 
-    upd = cond(res.diverged, fallback, res.state, "odometry.fallback")
+    upd = fallback_or_keep(res, fallback)
     # if not enough features, skip the measurement update entirely
     upd = tree_where(enough, upd, fs)
 
@@ -499,9 +511,10 @@ class LinsOdometry:
         """Process one raw scan; returns the global pose (pos, quat)
         tensors, or None while initializing.
 
-        In the RUNNING state this performs no host read, so successive
-        scans queue up on the card; read `.trajectory` (or call
-        `trajectory_arrays`) to materialize results.
+        In the RUNNING state the host reads only the odometry's loop and
+        fallback flags (`running_step_impl`), so the fused pose stays on the
+        card; read `.trajectory` (or call `trajectory_arrays`) to
+        materialize results.
         """
         cfg = self.cfg
         xyz_t, n_t = self._scan_tensors(xyz, n_points)
@@ -570,7 +583,8 @@ class LinsOdometry:
         return None  # unreachable
 
     def add_scan_chunk(self, ts, xyzs, n_points, imu=None):
-        """Process K consecutive scans with no host read.  Requires
+        """Process K consecutive scans, reading back only the odometry's
+        loop and fallback flags (`running_step_impl`).  Requires
         STATUS_RUNNING — feed the first scans through add_scan until it
         returns a pose, then switch to chunks.
 

@@ -5,8 +5,9 @@ Used for the second-scan bootstrap and as the IESKF divergence fallback.
 6-DOF [rot(rpy), pos] GN over the stacked point-to-line/plane rows, with the
 LOAM degeneracy projection (directions of JᵀJ with eigenvalue < 10 nulled)
 and the reference's convergence thresholds (0.1 deg / 0.1 cm).  The loop
-runs num_iter fixed trips with the carry frozen once converged, as the
-IESKF does (odometry/ieskf.py).
+stops as the reference's does: the host reads `active` before each trip
+after the first, on every device, as the IESKF does (odometry/ieskf.py);
+the carry stays frozen on the device where `active` is false.
 """
 from __future__ import annotations
 
@@ -15,7 +16,6 @@ import torch
 from lins_tpu_torch.config import SlamConfig
 from lins_tpu_torch.geom import so3
 from lins_tpu_torch.ops import assoc
-from lins_tpu_torch.utils.device import may_stop
 from lins_tpu_torch.utils.metrics import trace_scope
 
 # Newton steps of the matrix sign iteration in `spectral_projector`: each
@@ -23,6 +23,12 @@ from lins_tpu_torch.utils.metrics import trace_scope
 # converges quadratically, so 64 steps settle |λ - thresh| anywhere in
 # [1e-12, 1e12].
 _SIGN_STEPS = 64
+
+
+def read_active(active: torch.Tensor) -> bool:
+    """`active` on the host: one copy, which waits for the trip that set
+    it."""
+    return bool(active)
 
 
 def spectral_projector(A, thresh: float):
@@ -75,7 +81,7 @@ def estimate_transform(rn0, qbn0, new_flat, new_sharp, last_surf, last_corner,
     (`ops/assoc.scan_normal_equations`, "gn" rows).  `refs`: the reference
     sets as `ops/assoc.reference_sets` made them, when the caller has.
     Returns (rn, qbn, iters).  Recorded as the span `odometry.gn_icp`:
-    `trips` run, `live` = `iters`.
+    `trips` issued, `live` = `iters`, `reads` the host reads.
     """
     with trace_scope("odometry.gn_icp") as span:
         dtype, dev = rn0.dtype, rn0.device
@@ -87,10 +93,13 @@ def estimate_transform(rn0, qbn0, new_flat, new_sharp, last_surf, last_corner,
         proj = torch.eye(6, dtype=dtype, device=dev)
         iters = torch.zeros((), dtype=torch.int32, device=dev)
         active = torch.ones((), dtype=torch.bool, device=dev)
+        span["trips"] = span["reads"] = 0
 
         for it in range(cfg.num_iter):
-            if may_stop(active):
-                break
+            if it:
+                span["reads"] += 1
+                if not read_active(active):
+                    break
             span["trips"] = it + 1
             (JtJ_s, Jtb_s, _, n_s), (JtJ_c, Jtb_c, _, n_c) = (
                 assoc.scan_normal_equations(flat, sharp, *refs, rn, qbn, it,

@@ -7,10 +7,14 @@ columns of H are nonzero and R = σ²I,
     K (r + Hδ) = (P⁻¹ + HᵀH/σ²)⁻¹ Hᵀ(r + Hδ)/σ²
 
 so every per-iteration solve is 18×18.  The reference's `while_loop` (up to
-num_iter iterations, stopping on convergence ‖Δ‖ ≤ 1e-2 or divergence) runs
-here as num_iter fixed trips with the carry frozen once converged or
-diverged: the same result as stopping, with no host read between trips on
-the card (utils/device.may_stop).  `iters` counts the active trips.
+num_iter iterations, stopping on convergence ‖Δ‖ ≤ 1e-2 or divergence)
+stops here as it does: the host reads the trip's flags before each later
+trip, on every device, and issues no trip once the filter has converged or
+diverged.  A read costs a round trip of tens of µs on the card, a trip
+milliseconds of host issue.  The carry is still frozen on the device where
+`active` is false, so a loop made to run all num_iter trips (as the tests
+force it) gives the same result, bit for bit.  `iters` counts the active
+trips.
 """
 from __future__ import annotations
 
@@ -21,7 +25,6 @@ import torch
 from lins_tpu_torch.config import SlamConfig
 from lins_tpu_torch.imu import eskf
 from lins_tpu_torch.ops import assoc
-from lins_tpu_torch.utils.device import may_stop
 from lins_tpu_torch.utils.metrics import trace_scope
 from lins_tpu_torch.utils.tree import tree_where
 
@@ -33,6 +36,13 @@ class IESKFResult(NamedTuple):
     n_surf: torch.Tensor        # matched surf rows (last iteration)
     n_corner: torch.Tensor      # matched corner rows (last iteration)
     residual_norm: torch.Tensor
+    diverged_read: bool         # `diverged` as the loop's last read gave it
+
+
+def read_flags(active: torch.Tensor, div: torch.Tensor) -> tuple[bool, bool]:
+    """(active, diverged) on the host: one copy of both flags, which waits
+    for the trip that set them."""
+    return tuple(torch.stack((active, div)).tolist())
 
 
 def _embed6(J66):
@@ -79,8 +89,11 @@ def update(filter_state: eskf.FilterState,
     (`ops/assoc.scan_normal_equations`, "ieskf" rows): JtJ and Jtr are the
     sums of the surf and corner blocks and the residual norm is
     sqrt(Σr²_surf + Σr²_corner), as `_blocks_xla` of the reference package
-    forms them.  Recorded as the span `odometry.ieskf`: `trips` run,
-    `live` = `iters`.
+    forms them.  Before each trip after the first, and once after the
+    last if none stopped the loop, the host reads `active` and `diverged`
+    together (`read_flags`), so the caller decides the fallback with no
+    read of its own.  Recorded as the span `odometry.ieskf`: `trips`
+    issued, `live` = `iters`, `reads` the host reads.
     """
     with trace_scope("odometry.ieskf") as span:
         dtype, dev = filter_state.rn.dtype, filter_state.rn.device
@@ -107,10 +120,14 @@ def update(filter_state: eskf.FilterState,
         ns = nc = scalar(0, torch.int32)
         res_norm_out = scalar(0.0, dtype)
         active = scalar(True, torch.bool)
+        span["trips"] = span["reads"] = 0
 
         for it in range(cfg.num_iter):
-            if may_stop(active):
-                break
+            if it:
+                span["reads"] += 1
+                going, diverged = read_flags(active, div)
+                if not going:
+                    break
             span["trips"] = it + 1
             (JtJ_s, Jtr_s, rsq_s, ns_new), (JtJ_c, Jtr_c, rsq_c, nc_new) = (
                 assoc.scan_normal_equations(flat, sharp, *refs, lin.rn, lin.qbn,
@@ -146,6 +163,9 @@ def update(filter_state: eskf.FilterState,
             res_norm_out = torch.where(active, res_norm, res_norm_out)
             iters = iters + active.to(torch.int32)
             active = active & ~conv_new & ~div_new
+        else:
+            span["reads"] += 1
+            diverged = read_flags(active, div)[1]
         span["live"] = iters
 
         # Joseph-form covariance update once at the end
@@ -162,4 +182,5 @@ def update(filter_state: eskf.FilterState,
         # diverged: caller substitutes the GN fallback pose; keep Pk unchanged
         out_state = tree_where(div, filter_state, updated)
         return IESKFResult(state=out_state, diverged=div, iters=iters,
-                           n_surf=ns, n_corner=nc, residual_norm=res_norm_out)
+                           n_surf=ns, n_corner=nc, residual_norm=res_norm_out,
+                           diverged_read=diverged)

@@ -93,8 +93,9 @@ class LinsSlam:
         prefetch the remaining scans AND their IMU batches to the device and
         process `chunk` scans per `LinsOdometry.add_scan_chunk` call, the
         mapper following at its cadence on the chunk's outputs
-        (`LinsMapper.process_chunk`), with no host read and no host->device
-        transfer inside the chunked loop.  Scans past the last full chunk
+        (`LinsMapper.process_chunk`), with no host->device transfer inside
+        the chunked loop and no host read but the odometry's loop and
+        fallback flags.  Scans past the last full chunk
         are streamed through `add_scan`.  The result equals streaming up to
         float rounding.
         """

@@ -26,6 +26,29 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def _host_syncs(fn):
+    """`fn()`'s host syncs by site (`chip_smoke.count_host_syncs`) and the
+    spans it records (`chip_smoke.record_spans`)."""
+    import chip_smoke
+
+    with chip_smoke.record_spans() as spans, \
+            chip_smoke.count_host_syncs() as sites:
+        fn()
+        torch.cuda.synchronize()
+    return sites, spans
+
+
+def _assert_odometry_reads(sites, spans):
+    """Every host sync at the odometry's read sites, as many as the `reads`
+    of the spans; none in the front end, the mapper or the loop closure."""
+    import chip_smoke
+
+    reads = sum(s["attrs"].get("reads", 0) for s in spans)
+    assert all(site.startswith(chip_smoke.ODOMETRY_READ_SITES)
+               for site in sites), dict(sites)
+    assert sum(sites.values()) == reads > 0, (dict(sites), reads)
+
+
 def _random_edges(shape, seed):
     rng = np.random.default_rng(seed)
     el = rng.random(shape) < 0.7
@@ -220,7 +243,7 @@ def _sequence(device):
 @pytest.mark.cuda
 def test_replay_on_card_matches_cpu(cuda_device):
     """float32 on the card within 1 cm of float64 on the CPU, through the
-    label kernel and with no host synchronisation inside a chunk."""
+    label kernel."""
     from lins_tpu_torch.slam import LinsSlam
 
     cfg = TINY.replace(use_pallas=True)
@@ -238,7 +261,9 @@ def test_replay_on_card_matches_cpu(cuda_device):
 
 
 @pytest.mark.cuda
-def test_chunk_has_no_host_sync(cuda_device):
+def test_chunk_syncs_only_at_odometry_reads(cuda_device):
+    """A chunk's host syncs are the odometry's reads of its loop and
+    fallback flags, as many as its spans count."""
     from lins_tpu_torch.odometry import LinsOdometry
 
     cfg = TINY.replace(use_pallas=True)
@@ -260,12 +285,9 @@ def test_chunk_has_no_host_sync(cuda_device):
         [data["scan_times"][k] + cfg.scan_period for k in ks],
         [data["scans_xyz"][k] for k in ks], [data["scans_n"][k] for k in ks],
         chunk=6, with_imu=True)
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        odo.add_scan_chunk(ts, xs, ns, imu=imu)
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
-    torch.cuda.synchronize()
+    sites, spans = _host_syncs(lambda: odo.add_scan_chunk(ts, xs, ns,
+                                                           imu=imu))
+    _assert_odometry_reads(sites, spans)
     assert len(odo.trajectory) == 7
 
 
@@ -468,10 +490,10 @@ def test_mapping_replay_on_card_matches_cpu(cuda_device):
 @pytest.mark.cuda
 def test_loop_replay_on_card(cuda_device):
     """Full SLAM with loop closure on the card (TINY sensor, the revisiting
-    circuit of tests/test_slam_integration.py): every chunk free of host
-    syncs, loop attempts aligned with K3, at least one loop closed, one
-    edge per keyframe after the first plus one per loop; the first scans
-    within 5 cm of float64 on the CPU."""
+    circuit of tests/test_slam_integration.py): every chunk's host syncs
+    the odometry's reads alone, loop attempts aligned with K3, at least one
+    loop closed, one edge per keyframe after the first plus one per loop;
+    the first scans within 5 cm of float64 on the CPU."""
     from lins_tpu_torch.datasets.synthetic import generate_sequence
     from lins_tpu_torch.slam import LinsSlam
 
@@ -487,12 +509,9 @@ def test_loop_replay_on_card(cuda_device):
     jobs, tail = card.stage_replay(data, chunk=12)
     plain_before = (select.select_candidates_plain.calls,
                     label.label_components_plain.calls)
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        for job in jobs:
-            card.run_chunk(job)
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
+    for job in jobs:
+        _assert_odometry_reads(*_host_syncs(
+            lambda: card.run_chunk(job)))
     for j in tail:
         card.add_scan(float(data["scan_times"][j]) + cfg.scan_period,
                       data["scans_xyz"][j], data["scans_n"][j])
@@ -666,8 +685,10 @@ def test_assoc_wrappers_and_empty_sets(cuda_device):
 @pytest.mark.cuda
 def test_odometry_association_runs_through_k4_k5(cuda_device):
     """A card replay takes every trip's normal equations from K4 and K5
-    (IESKF and GN fallback trips of each RUNNING scan), with no plain
-    association."""
+    (one launch a trip its IESKF and GN spans issued, at least one a
+    RUNNING scan), with no plain association."""
+    import chip_smoke
+
     from lins_tpu_torch.slam import LinsSlam
 
     cfg = TINY.replace(use_pallas=True)
@@ -676,10 +697,12 @@ def test_odometry_association_runs_through_k4_k5(cuda_device):
               assoc.corner_normal_equations.launches,
               assoc.surf_normal_equations_plain.calls,
               assoc.corner_normal_equations_plain.calls)
-    LinsSlam(cfg, enable_mapping=False).run_replay(data, chunk=6)
-    need = 2 * cfg.num_iter * (8 - 2)
-    assert assoc.surf_normal_equations.launches - before[0] >= need
-    assert assoc.corner_normal_equations.launches - before[1] >= need
+    with chip_smoke.record_spans() as spans:
+        LinsSlam(cfg, enable_mapping=False).run_replay(data, chunk=6)
+    trips = chip_smoke.odometry_trips(spans)
+    assert trips >= 8 - 2
+    assert assoc.surf_normal_equations.launches - before[0] == trips
+    assert assoc.corner_normal_equations.launches - before[1] == trips
     assert assoc.surf_normal_equations_plain.calls == before[2]
     assert assoc.corner_normal_equations_plain.calls == before[3]
 

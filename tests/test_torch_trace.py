@@ -2,15 +2,16 @@
 the spans at the stage boundaries: ids, roots and scan indices on a TINY
 replay and on streaming, the ring's bound, device attributes read only at
 export, the `kept` flags and the discarded time with the card's form of
-every branch, and the benchmark's seven readers of the spans on TINY
-traced runs.  The `cuda` test runs a warm VLP-16 chunk on the card with
-the recorder recording and counts its host syncs.  This file imports
+the mapper's branches, the odometry's loops and fallback decided on the
+host against their full-trip form, and the benchmark's seven readers of
+the spans on TINY traced runs.  The `cuda` tests run a warm VLP-16 chunk on
+the card with the recorder recording and count its host syncs by site,
+and hold a chunk to its full-trip form bit for bit.  This file imports
 neither JAX nor the reference package:
 
     python -m pytest --noconftest tests/test_torch_trace.py -q
 """
 import json
-import warnings
 
 import numpy as np
 import pytest
@@ -22,11 +23,15 @@ from benchmark.layer_metrics import _program
 from benchmark.tests.tiny import run_tiny, tiny_cell
 from lins_tpu_torch.config import TINY
 from lins_tpu_torch.datasets import synthetic as syn
+from lins_tpu_torch.frontend.pipeline import process_cloud
 from lins_tpu_torch.graph import loop_closure
+from lins_tpu_torch.imu import eskf
 from lins_tpu_torch.mapping import scan2map
+from lins_tpu_torch.odometry import estimator as est
 from lins_tpu_torch.odometry import gn_icp, ieskf
 from lins_tpu_torch.slam import LinsSlam, run_sequence
 from lins_tpu_torch.utils import metrics, tree
+from lins_tpu_torch.utils.tree import tree_map
 
 # the port's CPU tests run many tiny ops: one intra-op thread each, so the
 # test workers that share the cores do not oversubscribe them
@@ -43,8 +48,10 @@ READS = {"odometry.frontend_ms_per_scan.replay": "odometry.frontend",
          "loop.ms_per_attempt.live": "loop.attempt",
          "dispatch.discarded_ms_per_scan.replay": None,
          "dispatch.discarded_ms_per_scan.live": None}
-# the fixed-trip loops and their trips on the card
-LOOPS = {"odometry.ieskf": TINY.num_iter, "odometry.gn_icp": TINY.num_iter,
+# the loops and their trips on the card: the mapper's and the loop
+# closure's run all theirs (None: stopped by the host's reads, every trip
+# issued live)
+LOOPS = {"odometry.ieskf": None, "odometry.gn_icp": None,
          "mapper.scan_to_map": TINY.scan2map_iters,
          "loop.icp": TINY.loop_icp_iters}
 
@@ -65,11 +72,36 @@ def _recorded(fn):
 
 
 def _card_form(mp):
-    """Every branch computed and selected, every fixed-trip loop running
-    all its trips, as on the card."""
+    """The mapper's and the loop closure's branches computed and selected,
+    their fixed-trip loops running all their trips, as on the card (the
+    odometry decides on the host there as here)."""
     mp.setattr(tree, "_decide", tree.select_cond)
-    for mod in (ieskf, gn_icp, scan2map, loop_closure):
+    for mod in (scan2map, loop_closure):
         mp.setattr(mod, "may_stop", lambda active: False)
+
+
+def _full_trips(mp):
+    """The odometry as the card ran it before it decided on the host: the
+    IESKF's and the GN's reads never stop their loops (every trip issued,
+    the carry frozen on the device), and the fallback computed every scan
+    and selected on the device."""
+    mp.setattr(ieskf, "read_flags", lambda active, div: (True, bool(div)))
+    mp.setattr(gn_icp, "read_active", lambda active: True)
+
+    def selected(res, fallback):
+        with metrics.trace_scope("odometry.fallback", kept=res.diverged):
+            return tree.select_cond(res.diverged, fallback, res.state)
+
+    mp.setattr(est, "fallback_or_keep", selected)
+
+
+def _odometry_reads(name, trips):
+    """The host reads of an odometry loop that issued `trips`: one before
+    each trip after the first, and the IESKF's one after a last trip that
+    did not stop it (it brings `diverged` for the fallback)."""
+    if name == "odometry.ieskf":
+        return trips
+    return min(trips, TINY.num_iter - 1)
 
 
 @pytest.fixture(scope="module")
@@ -247,12 +279,19 @@ def test_card_form_kept_flags_and_discarded(card_run, replay_spans):
     assert all(type(s["attrs"]["kept"]) is bool for s in conds)
     assert any(s["attrs"]["kept"] for s in conds)
     assert not all(s["attrs"]["kept"] for s in conds)
-    # every fixed-trip loop ran all its trips; `live` is the loop's count
+    # the mapper's and the loop closure's loops ran all their trips, the
+    # odometry's stopped on the host's reads; `live` is the loop's count
     for s in spans:
-        if s["name"] in LOOPS:
-            assert s["attrs"]["trips"] == LOOPS[s["name"]], s
+        a = s["attrs"]
+        if LOOPS.get(s["name"]):
+            assert a["trips"] == LOOPS[s["name"]], s
             if s["name"] != "loop.icp":
-                assert 0 < s["attrs"]["live"] <= s["attrs"]["trips"]
+                assert 0 < a["live"] <= a["trips"]
+        elif s["name"] in LOOPS:
+            assert 0 < a["trips"] == a["live"] <= TINY.num_iter, s
+            assert a["reads"] == _odometry_reads(s["name"], a["trips"]), s
+        elif s["name"] == "odometry.fallback":
+            assert a["reads"] == 0 and a["kept"] is False, s
     # one IESKF update a RUNNING scan, streamed or chunked
     lives = [s["attrs"]["live"] for s in spans if s["name"] == "odometry.ieskf"]
     assert lives == [int(m["iters"]) for m in slam.odometry.metrics]
@@ -264,9 +303,9 @@ def test_card_form_kept_flags_and_discarded(card_run, replay_spans):
             kept = [c for c in spans if s2m and c["parent"] == s2m[0]["id"]
                     and c["attrs"].get("kept")]
             assert s["attrs"]["n_refresh"] == len(kept)
-    # the discarded time: some, less than the run's; on the CPU's taken
-    # branches no frozen trip runs, so only branches not taken (their
-    # spans all but empty) count
+    # the discarded time: some (the mapper's), less than the run's; on the
+    # CPU's taken branches no frozen trip runs, so only branches not taken
+    # (their spans all but empty) count
     run_ns = sum(s["end_ns"] - s["start_ns"] for s in spans
                  if s["parent"] == 0)
     card = _program.discarded_ns(spans)
@@ -277,6 +316,103 @@ def test_card_form_kept_flags_and_discarded(card_run, replay_spans):
     assert taken == pytest.approx(dropped)
     assert all(s["attrs"]["trips"] == s["attrs"]["live"]
                for s in replay_spans if "live" in s["attrs"])
+
+
+# the scans of the full-trip comparison (its form costs 30 + 30 trips a scan)
+N_FULL = 6
+
+
+def _odometry_run(data, mode, full_trips=False):
+    """(the LinsOdometry, its spans) of the TINY sequence's first N_FULL
+    scans streamed or replayed in chunks with mapping off; with
+    `full_trips` in the form of `_full_trips`."""
+    out = {}
+
+    def run():
+        slam = LinsSlam(TINY, device="cpu", dtype=F64, enable_mapping=False)
+        if mode == "chunked":
+            slam.run_replay(data, n_scans=N_FULL, chunk=CHUNK)
+        else:
+            run_sequence(slam, data, n_scans=N_FULL)
+        out["odo"] = slam.odometry
+
+    with pytest.MonkeyPatch.context() as mp:
+        if full_trips:
+            _full_trips(mp)
+        spans = _recorded(run)
+    return out["odo"], spans
+
+
+@pytest.mark.parametrize("mode", ["streamed", "chunked"])
+def test_host_decided_equals_full_trips(data, mode):
+    """The odometry's loops stopped and its fallback decided on the host
+    give the full-trip form's trajectory, filter states and per-scan
+    metrics bit for bit: a frozen trip and a fallback not kept change
+    nothing."""
+    decided, spans = _odometry_run(data, mode)
+    full, full_spans = _odometry_run(data, mode, full_trips=True)
+
+    def trips(spans, name):
+        return [s["attrs"]["trips"] for s in spans if s["name"] == name]
+
+    # the full form issued every trip, and the fallback every RUNNING scan
+    # after the bootstrap's GN; the host-decided form stopped each IESKF
+    # early and issued the GN for the bootstrap alone
+    assert trips(full_spans, "odometry.ieskf") == [TINY.num_iter] * (
+        N_FULL - 2)
+    assert trips(full_spans, "odometry.gn_icp") == [TINY.num_iter] * (
+        N_FULL - 1)
+    assert max(trips(spans, "odometry.ieskf")) < TINY.num_iter
+    assert len(trips(spans, "odometry.gn_icp")) == 1
+    for a, b in zip(decided.trajectory_arrays(), full.trajectory_arrays()):
+        np.testing.assert_array_equal(a, b)
+    for name in ("filter_state", "global_state", "last_surf", "last_corner",
+                 "rel_pose"):
+        tree_map(lambda x, y: torch.testing.assert_close(x, y, rtol=0,
+                                                         atol=0),
+                 getattr(decided, name), getattr(full, name))
+    assert len(decided.metrics) == len(full.metrics) == N_FULL - 2
+    for m, n in zip(decided.metrics, full.metrics):
+        for key in ("iters", "n_surf", "n_corner", "residual", "diverged",
+                    "enough"):
+            assert torch.equal(torch.as_tensor(m[key]),
+                               torch.as_tensor(n[key])), key
+
+
+def test_divergence_takes_the_fallback(data):
+    """A RUNNING scan whose IESKF diverges (a covariance that is not
+    positive definite: the update is NaN at its first trip) records
+    `odometry.fallback` kept, with the GN inside it, and fuses the GN ICP
+    from the propagated pose."""
+    slam = run_sequence(LinsSlam(TINY, device="cpu", dtype=F64,
+                                 enable_mapping=False), data, n_scans=4)
+    odo, k = slam.odometry, 4
+    t = float(data["scan_times"][k]) + TINY.scan_period
+    for ti, a, g in zip(data["imu_times"], data["imu_acc"], data["imu_gyr"]):
+        if odo.time + 1e-9 < ti <= t + 1e-9:
+            odo.add_imu(ti, a, g)
+    imu = odo._imu_tensors(*odo._imu_batch_np(t))
+    _, _, feats = process_cloud(*odo._scan_tensors(
+        data["scans_xyz"][k], data["scans_n"][k]), TINY)
+    fs0 = odo.filter_state._replace(P=-torch.eye(eskf.DIM, dtype=F64))
+    state = (fs0, odo.global_state, feats, odo.last_surf, odo.last_corner)
+    out = []
+    spans = _recorded(lambda: out.append(est.running_step_impl(
+        *state, *imu, TINY)))
+    by_id = {s["id"]: s for s in spans}
+    ieskf_span, = [s for s in spans if s["name"] == "odometry.ieskf"]
+    assert ieskf_span["attrs"] == {"trips": 1, "reads": 1, "live": 1}
+    fb, = [s for s in spans if s["name"] == "odometry.fallback"]
+    assert fb["attrs"] == {"kept": True, "reads": 0}
+    gn, = [s for s in spans if s["name"] == "odometry.gn_icp"]
+    assert by_id[gn["parent"]] is fb
+    metrics_ = out[0][6]
+    assert bool(metrics_["diverged"]) and bool(metrics_["enough"])
+    fs = eskf.propagate(fs0, *imu, TINY)
+    rn, qbn, _ = gn_icp.estimate_transform(
+        fs.rn, fs.qbn, feats.flat, feats.sharp, odo.last_surf,
+        odo.last_corner, TINY)
+    assert torch.equal(out[0][4], rn) and torch.equal(out[0][5], qbn)
 
 
 def _traced(cell, mp):
@@ -320,43 +456,81 @@ def test_readers_read_the_window(cell):
             assert harness.load_reader(name).read(trace) is None
 
 
-@pytest.mark.cuda
-def test_warm_chunk_records_with_no_host_sync():
-    """A warm VLP-16 chunk (K = 32) on the card under PyTorch's sync debug
-    mode, as `chip_smoke.count_host_syncs` runs it: no host sync with the
-    recorder recording, and its spans read back after."""
+def _vlp16_chunks(n_chunks, **kw):
+    """A VLP-16 LinsSlam on the card (`kw` to it) staged over a gentle
+    drive of 6 streamed scans and `n_chunks` chunks of 32, and its jobs."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     from lins_tpu_torch.config import VLP16
 
     cfg = VLP16.replace(max_points=28800, use_pallas=True,
                         use_pallas_select=True)
-    data = syn.generate_sequence(cfg, n_scans=6 + 2 * 32, kind="gentle",
-                                 speed=1.5)
-    slam = LinsSlam(cfg)
+    data = syn.generate_sequence(cfg, n_scans=6 + n_chunks * 32,
+                                 kind="gentle", speed=1.5)
+    slam = LinsSlam(cfg, **kw)
     slam.warmup()
     jobs, _ = slam.stage_replay(data, chunk=32, min_streamed=6)
+    return slam, jobs
+
+
+@pytest.mark.cuda
+def test_warm_chunk_syncs_only_at_odometry_reads():
+    """A warm VLP-16 chunk (K = 32) on the card under PyTorch's sync debug
+    mode (`chip_smoke.count_host_syncs`) with the recorder recording: every
+    host sync at the odometry's read sites, as many as its spans' `reads`,
+    none in the front end, the mapper or the loop closure; each IESKF
+    stopped at its live trips; the spans read back after."""
+    import chip_smoke
+
+    slam, jobs = _vlp16_chunks(2)
     slam.run_chunk(jobs[0])
     torch.cuda.synchronize()
-    rec = metrics.SpanRecorder()
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(metrics, "RECORDER", rec)
-        with warnings.catch_warnings(record=True) as seen:
-            warnings.simplefilter("always")
-            torch.cuda.set_sync_debug_mode("warn")
-            try:
-                slam.run_chunk(jobs[1])
-            finally:
-                torch.cuda.set_sync_debug_mode("default")
+    with chip_smoke.record_spans() as spans, \
+            chip_smoke.count_host_syncs() as sites:
+        slam.run_chunk(jobs[1])
         torch.cuda.synchronize()
-    syncs = [w for w in seen if "called a synchronizing" in str(w.message)]
-    assert syncs == []
-    spans = rec.spans()
     names = {s["name"] for s in spans}
     assert {"slam.chunk", "odometry.ieskf", "odometry.fallback",
             "mapper.step", "mapper.regather", "loop.attempt"} <= names
-    trips = [s["attrs"]["trips"] for s in spans
-             if s["name"] == "odometry.ieskf"]
-    assert trips == [cfg.num_iter] * 32
+    reads = sum(s["attrs"].get("reads", 0) for s in spans)
+    assert all(site.startswith(chip_smoke.ODOMETRY_READ_SITES)
+               for site in sites), sites
+    assert sum(sites.values()) == reads > 0
+    ieskf_spans = [s["attrs"] for s in spans if s["name"] == "odometry.ieskf"]
+    assert len(ieskf_spans) == 32
+    for a in ieskf_spans:
+        assert a["trips"] == a["live"] == a["reads"], a
     json.dumps(spans)
     assert np.isfinite([s["end_ns"] - s["start_ns"] for s in spans]).all()
+
+
+@pytest.mark.cuda
+def test_card_chunk_equals_full_trips():
+    """A warm VLP-16 chunk's odometry on the card, its loops and fallback
+    decided on the host, against the same chunk in the full-trip form
+    (`_full_trips`) from the same state: poses, filter state and per-scan
+    metrics bit for bit."""
+    slam, jobs = _vlp16_chunks(2, enable_mapping=False)
+    slam.run_chunk(jobs[0])
+    odo = slam.odometry
+    names = ("filter_state", "global_state", "last_surf", "last_corner")
+    start = {n: tree_map(torch.clone, getattr(odo, n)) for n in names}
+    runs = []
+    for full in (False, True):
+        for n in names:
+            setattr(odo, n, tree_map(torch.clone, start[n]))
+        with pytest.MonkeyPatch.context() as mp:
+            if full:
+                _full_trips(mp)
+            odo.add_scan_chunk(*jobs[1][0])
+        runs.append(dict(poses=odo.last_chunk_poses,
+                         state=tuple(getattr(odo, n) for n in names),
+                         metrics=odo.metrics[-32:]))
+    decided, full = runs
+    for a, b in zip(decided["poses"], full["poses"]):
+        assert torch.equal(a, b)
+    tree_map(lambda x, y: torch.testing.assert_close(x, y, rtol=0, atol=0),
+             decided["state"], full["state"])
+    for m, n in zip(decided["metrics"], full["metrics"]):
+        for key in ("iters", "n_surf", "n_corner", "residual", "diverged"):
+            assert m[key] == n[key], key
