@@ -15,7 +15,9 @@ against lins_tpu on the same numpy inputs:
     the rebuild due, in the card's form equal to the branches taken;
   * the loop-closure entry points run, also on a store sharded over CPU
     shards (the radius-selected map is tests/test_torch_radius.py's, the
-    sharded store tests/test_torch_shardstore.py's).
+    sharded store tests/test_torch_shardstore.py's);
+  * the port alone, streaming and replay: mapping bounds the odometry's
+    drift.
 
 The reference's LinsSlam keeps its mapper at float32, so its float64 mapper
 is set in by hand.  Its selection runs the sort path (`use_pallas_select`
@@ -39,6 +41,7 @@ from lins_tpu_torch.mapping import mapper as tmapper
 from lins_tpu_torch.mapping import scan2map as tscan2map
 from lins_tpu_torch.mapping.scan2map import scan_to_map as t_scan_to_map
 from lins_tpu_torch.slam import LinsSlam as TSlam
+from lins_tpu_torch.slam import ate_rmse as t_ate_rmse
 from lins_tpu_torch.slam import run_sequence as t_run
 from lins_tpu_torch.utils import tree
 
@@ -349,6 +352,28 @@ def test_slice_3_entry_points_raise():
     surf = m.state.store.surf
     assert isinstance(surf, ShardedRows) and len(surf.parts) == 4
     assert surf.shape == (TCFG.max_keyframes, MAP_KW["surf_cap"], 3)
+
+
+def test_mapping_bounds_drift(data, streamed, replayed):
+    """The port alone: its streamed and its replayed runs with mapping end
+    closer to ground truth than its odometry alone over the same drive, by
+    the bounds of the reference's long-horizon test
+    (tests/test_slam_integration.py::test_mapping_bounds_drift)."""
+    R0 = so3.quat_to_mat(torch.as_tensor(np.asarray(data["gt_quat"][0]),
+                                         dtype=torch.float64)).numpy()
+    gt = np.asarray(data["gt_pos"])
+
+    def ate(slam):
+        _, ps, _ = slam.trajectory_arrays()
+        assert len(ps) == N_SCANS - 1
+        return t_ate_rmse(ps, gt[1:1 + len(ps)], (R0, gt[0]))
+
+    odometry = TSlam(TCFG, dtype=torch.float64, device="cpu",
+                     enable_mapping=False, **MAP_KW)
+    ate_odo = ate(odometry.run_replay(data, chunk=CHUNK))
+    for ate_map in (ate(streamed[1]), ate(replayed[1])):
+        assert ate_map < 0.5 * ate_odo
+        assert ate_map < 0.2
 
 
 if __name__ == "__main__":
