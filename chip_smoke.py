@@ -57,7 +57,9 @@ Phases, in order; any failure exits non-zero:
                  backend (use_pallas_select=True, loop_attempts=False) over
                  the same scans: K3 launches (>= 2 per mapping
                  step), no plain selection, fused ATE <= the odometry ATE of
-                 the same scans and <= 0.25 m, SLAM scans/s, syncs, peak;
+                 the same scans and <= 0.25 m, SLAM scans/s, the warm
+                 chunk's host syncs only at the read sites (as many as its
+                 spans' `reads`), peak;
                  then K3 against its plain version on real gathers of the
                  final map, bit for bit for both d2C rules, with kernel,
                  plain and library times, both bounds and the previous
@@ -81,15 +83,18 @@ Phases, in order; any failure exits non-zero:
                  those of the window's points, its centroid within 1e-4 m
                  of their float64 mean
      path V      bench.py's main cell: the same with loop attempts on, over
-                 the same 70 scans (no revisit, so no loop is found, but every
-                 attempt's alignment is computed and selected on the card):
-                 fused ATE <= 0.25 m, SLAM scans/s, syncs, peak, K3 launches
-                 inside the attempts
+                 the same 70 scans (no revisit, so no loop is found and no
+                 attempt's alignment is issued): fused ATE <= 0.25 m, SLAM
+                 scans/s, the warm chunk's host syncs only at the read
+                 sites, peak, no K3 launch inside an attempt whose
+                 `loop.align` was not kept
      path H      HDL-64 (64x1800, max_points=150000, use_pallas=True,
                  use_pallas_select=True, loop_time_gate=4 s) full SLAM over
                  107 scans of the synthetic revisiting circuit: K2 on every
-                 chunk and streamed scan and no plain labelling, K3 in the
-                 attempts, at least one loop with fitness < 0.3, edges =
+                 chunk and streamed scan and no plain labelling, K3 in each
+                 attempt that found a candidate and in no other, the warm
+                 chunk's host syncs only at the read sites, at least one
+                 loop with fitness < 0.3, edges =
                  keyframes - 1 + loops, fused ATE <= the JAX package's on the
                  same sequence + 0.05 m, SLAM scans/s, syncs, peak
      path R      the radius-selected map with loop closure off (run_slam.py
@@ -98,9 +103,9 @@ Phases, in order; any failure exits non-zero:
                  the selection changed and the window was rebuilt at least
                  twice (each step's selection recorded on the card), no
                  loop attempt, K1, K3 and K4/K5 launches, the warm chunk's
-                 host syncs only the odometry's reads (as many as its spans'
-                 `reads`; none in the front end, the mapper or the loop
-                 closure), fused ATE <= the odometry ATE of the same
+                 host syncs only at the read sites (as many as its spans'
+                 `reads`: the odometry's and the mapper's; none in the front
+                 end), fused ATE <= the odometry ATE of the same
                  scans and <= 0.25 m
      path H-radius  path H with lc_map_mode="radius": the same checks as
                  path H against the JAX package's ATE over the radius map
@@ -108,18 +113,18 @@ Phases, in order; any failure exits non-zero:
                  reference's greedy picking): the odometry ATE of the same
                  run <= 0.25 m, fused ATE <= it and <= the JAX package's
                  exact-mode fused ATE + 0.05 m, the warm chunk's host syncs
-                 only the odometry's reads, scans/s beside the window
+                 only at the read sites, scans/s beside the window
                  path's
-     path H-sparse  path H with max_keyframes=2048: every loop attempt's
-                 solve (computed and selected on the card) is the sparse
-                 optimize_cg and no dense optimize runs; path H's gates
+     path H-sparse  path H with max_keyframes=2048: every solve a loop
+                 attempt kept is the sparse optimize_cg, one a kept
+                 `loop.solve`, and no dense optimize runs; path H's gates
                  against the JAX package's ATE at 2048 slots; the store's
                  bytes
      path HS-shard  path H-sparse with slam.mapper.shard_store_over(a mesh
                  of 4 parts of the card): path H-sparse's gates, the same
                  loops, keyframes and edges, every fused pose within 1e-5 m
                  and 1e-6 of |dot| of path H-sparse's, the warm chunk's host
-                 syncs only the odometry's reads, each cloud field in 4
+                 syncs only at the read sites, each cloud field in 4
                  parts of 512 rows; then
                  the seams at full width: a 2048-slot HDL-64 store filled
                  past the ring's wrap, sharded over 4 parts of the card,
@@ -134,8 +139,8 @@ Phases, in order; any failure exits non-zero:
                  mesh: 4 distinct VLP-16 streams (the gentle trajectory at
                  four speeds) in path V's config, 6 streamed + 32 scans
                  each, each stream's fused poses within 1e-4 m of its own
-                 LinsSlam chunk in this process, host syncs only the
-                 odometry's reads (batched and each stream's own), batched
+                 LinsSlam chunk in this process, host syncs only at the
+                 read sites (batched and each stream's own), batched
                  scans/s beside one stream at a time, peak memory
   6. profiles    under torch.profiler, after every timing: one streamed
                  RUNNING scan and each of its stages; one mapping step and
@@ -606,10 +611,14 @@ def count_host_syncs():
             torch.cuda.set_sync_debug_mode("default")
 
 
-# the sites of the odometry's host reads (its loops' stops, the fallback's
-# flag) in `count_host_syncs`' form
-ODOMETRY_READ_SITES = ("/odometry/ieskf.py:", "/odometry/gn_icp.py:",
-                       "/odometry/estimator.py:")
+# the sites of the port's host reads in `count_host_syncs`' form: the
+# odometry's (its loops' stops, the fallback's flag) and the mapper's (its
+# branches' predicates through tree.cond, its loops' stops through
+# device.may_stop)
+READ_SITES = ("/odometry/ieskf.py:", "/odometry/gn_icp.py:",
+              "/odometry/estimator.py:", "/mapping/mapper.py:",
+              "/mapping/scan2map.py:", "/graph/loop_closure.py:",
+              "/utils/tree.py:", "/utils/device.py:")
 
 
 @contextlib.contextmanager
@@ -632,15 +641,17 @@ def record_spans():
 
 def check_reads(sites, spans, what):
     """The host syncs of `what` (`count_host_syncs`' sites): every one at
-    the odometry's read sites, as many as the `reads` of its spans; the
-    front end, the mapper and the loop closure make none."""
+    the port's read sites, as many as the `reads` of all its spans (the
+    odometry's and the mapper's); the front end makes none."""
     reads = sum(s["attrs"].get("reads", 0) for s in spans)
+    mapper = sum(s["attrs"].get("reads", 0) for s in spans
+                 if s["name"].startswith(("mapper.", "loop.")))
     syncs = sum(sites.values())
     elsewhere = {site: n for site, n in sites.items()
-                 if not site.startswith(ODOMETRY_READ_SITES)}
+                 if not site.startswith(READ_SITES)}
     check(not elsewhere and syncs == reads,
-          f"{what}: {syncs} host syncs, all at the odometry's reads, as "
-          f"many as its spans' {reads} reads"
+          f"{what}: {syncs} host syncs, all at the read sites, as many as "
+          f"its spans' {reads} reads ({mapper} the mapper's)"
           + (f"; elsewhere {elsewhere}" if elsewhere else ""))
 
 
@@ -2094,7 +2105,8 @@ def replay(slam, data, n_scans=None):
     spans are recorded apart.  Returns a dict: wall s, chunk_s, rate
     (scans/s over the timed chunks), syncs and sites (chunk 0's host syncs
     by call site), warm_spans (chunk 0's spans), odometry_trips (the run's),
-    counts, peak_bytes, held_bytes."""
+    counts, kept (the run's `cond` spans kept, by name), peak_bytes,
+    held_bytes."""
     import torch
 
     from lins_tpu_torch.utils import metrics
@@ -2140,6 +2152,8 @@ def replay(slam, data, n_scans=None):
                 warm_spans=[s for s in spans if run_chunk.warm_from < s["id"]
                             <= run_chunk.warm_to],
                 odometry_trips=odometry_trips(spans), counts=counts,
+                kept=collections.Counter(s["name"] for s in spans
+                                         if s["attrs"].get("kept") is True),
                 peak_bytes=torch.cuda.max_memory_allocated(),
                 held_bytes=held)
 
@@ -2213,6 +2227,17 @@ def count_loop_launches():
         mapper._loop_step_impl = inner
 
 
+def check_loop_launches(in_loops, infos):
+    """K3 launched inside each loop attempt that found a candidate (the
+    polish of its alignment) and in no other: an attempt with no
+    candidate issues no alignment."""
+    found = [bool(i["found"]) for i in infos]
+    check(len(in_loops) == len(found)
+          and all((n > 0) == f for n, f in zip(in_loops, found)),
+          f"K3 launched inside the {sum(found)} attempts that found a "
+          f"candidate and in none of the other {len(found) - sum(found)}")
+
+
 def _loop_log(mapper):
     infos = [{k: float(v) for k, v in i.items()} for i in mapper.loop_info]
     log(f"  {len(infos)} loop attempts: found "
@@ -2273,6 +2298,7 @@ def phase_mapping(cfg, data, odo_ps):
     check(counts["label"] > 0 and counts["label_plain"] == 0,
           f"K1 launched {counts['label']} times, no plain labelling")
     check_assoc(r, N_SCANS_WINDOW)
+    check_reads(r["sites"], r["warm_spans"], "the warm chunk")
     check(bool(np.isfinite(ps).all() and np.isfinite(qs).all()),
           "every fused pose finite")
     gt = data["gt_pos"][1:1 + len(ps)]
@@ -2300,11 +2326,11 @@ def phase_path_v(cfg, data):
     log(f"  K3 launches inside the attempts: {in_loops}")
     check(len(ps) == N_SCANS - 1, "one fused pose per scan after the first")
     check(len(infos) >= 10, f"{len(infos)} loop attempts at 1 Hz")
-    check(all(n >= 1 for n in in_loops),
-          "K3 launched in every attempt (the polish, computed and selected)")
+    check_loop_launches(in_loops, infos)
     check(counts["select_plain"] == 0 and counts["label_plain"] == 0,
           "no plain selection or labelling on the card")
     check_assoc(r, N_SCANS)
+    check_reads(r["sites"], r["warm_spans"], "the warm chunk")
     check(bool(np.isfinite(ps).all() and np.isfinite(qs).all()),
           "every fused pose finite")
     err = ate(ps, data["gt_pos"][1:1 + len(ps)], align=True)
@@ -2434,10 +2460,10 @@ def phase_path_h(cfg, data, what="path H", ref_ate=REF_FUSED_ATE_H_M,
           and counts["label_blocked_plain"] == 0,
           "no K1 and no plain labelling at 64 rows")
     check_assoc(r, N_SCANS_H)
-    check(counts["select"] > 0 and all(n >= 1 for n in in_loops)
-          and counts["select_plain"] == 0,
-          f"K3 launched {counts['select']} times, in every loop attempt, "
-          f"no plain selection")
+    check(counts["select"] > 0 and counts["select_plain"] == 0,
+          f"K3 launched {counts['select']} times, no plain selection")
+    check_loop_launches(in_loops, infos)
+    check_reads(r["sites"], r["warm_spans"], "the warm chunk")
     accepted = [i for i in infos if i["accepted"]]
     check(n_loops >= 1 and len(accepted) == n_loops
           and all(i["fitness"] < 0.3 for i in accepted),
@@ -2970,8 +2996,8 @@ def _store_bytes(store):
 
 
 def phase_path_hs(cfg, data, shards=0):
-    """Path H with 2048 keyframe slots: every loop attempt's solve (computed
-    and selected on the card) and final_solve go through optimize_cg."""
+    """Path H with 2048 keyframe slots: every solve a loop attempt keeps
+    goes through optimize_cg (phase 6 times one on the final state)."""
     with count_solves() as solves:
         r = phase_path_h(cfg, data,
                          "path HS-shard" if shards else "path H-sparse",
@@ -2981,11 +3007,13 @@ def phase_path_hs(cfg, data, shards=0):
     nbytes = _store_bytes(store)
     log(f"  the keyframe store: {K} slots, {nbytes / 2**20:.1f} MiB "
         f"({nbytes / K / 1e3:.1f} kB a keyframe)")
-    log(f"  solves during the run: {dict(solves)}")
-    check(K == 2048 and solves["optimize_cg"] >= 1
+    kept = r["kept"]["loop.solve"]
+    log(f"  solves during the run: {dict(solves)}; loop.solve kept {kept}"
+        " times")
+    check(K == 2048 and solves["optimize_cg"] == kept
           and solves["optimize"] == 0,
-          f"{solves['optimize_cg']} sparse solves (optimize_cg) and no "
-          f"dense one above 1024 slots")
+          f"{solves['optimize_cg']} sparse solves (optimize_cg), one a kept "
+          f"loop.solve, and no dense one above 1024 slots")
     return dict(r, store_bytes=nbytes, solves=dict(solves))
 
 

@@ -10,10 +10,11 @@ polish through the scan-to-map machinery (and kernel K3).  An edge is
 accepted when fitness < 0.3 and its implied correction is consistent with
 the odometry's drift.
 
-On the card nothing is read back to the host: the ICP loop runs its
-`loop_icp_iters` trips with the carry frozen once converged, and the
-align-or-skip branch is computed and selected (utils/tree.cond).  On the
-CPU the loop stops and only the taken branch runs.
+The host decides both on every device: it reads whether a candidate was
+found and issues the alignment only then (utils/tree.cond), and it reads
+the ICP's `active` flag once its gate is the finest and issues no trip
+once the loop has converged (utils/device.may_stop).  An attempt with
+no candidate costs one host read here and issues no alignment.
 """
 from __future__ import annotations
 
@@ -28,7 +29,7 @@ from lins_tpu_torch.ops.grid_nn import build_grid
 from lins_tpu_torch.ops.lin3 import eigh_sym3x3
 from lins_tpu_torch.ops.voxel import top_k_nn, voxel_downsample
 from lins_tpu_torch.utils.device import may_stop
-from lins_tpu_torch.utils.metrics import trace_scope
+from lins_tpu_torch.utils.metrics import host_read, trace_scope
 from lins_tpu_torch.utils.tree import cond
 
 
@@ -116,10 +117,13 @@ def icp_align(src, src_valid, dst, dst_valid, iters: int = 40,
     The correspondence gate follows a geometric schedule max_corr ->
     final_corr, reaching the finest gate a few trips before the last, where
     a transformation-epsilon test ends the loop (the reference's
-    `while_loop`; here `iters` fixed trips with the carry frozen once done).
+    `while_loop`: the host reads `active` before each trip that follows
+    one at the finest gate, the only trips that can end the loop, and the
+    carry stays frozen on the device where it is false).
     fitness = mean squared correspondence distance at the result (PCL's
-    getFitnessScore, :1139-1141).  Recorded as the span `loop.icp` with
-    the `trips` run."""
+    getFitnessScore, :1139-1141).  Recorded as the span `loop.icp`:
+    `trips` issued, `live` the active ones, `reads` the host reads and
+    `read_ns` their wait."""
     with trace_scope("loop.icp") as span:
         dtype, dev = src.dtype, src.device
         tight = 6
@@ -128,9 +132,15 @@ def icp_align(src, src_valid, dst, dst_valid, iters: int = 40,
         R = torch.eye(3, dtype=dtype, device=dev)
         t = torch.zeros(3, dtype=dtype, device=dev)
         active = torch.ones((), dtype=torch.bool, device=dev)
+        live = torch.zeros((), dtype=torch.int32, device=dev)
+        span.update(reads=0, read_ns=0)
+        gated = True     # the last trip, at a coarse gate, could not stop
         for i in range(iters):
-            if may_stop(active):
-                break
+            if not gated:
+                with host_read(span):
+                    stop = may_stop(active)
+                if stop:
+                    break
             span["trips"] = i + 1
             corr = max(max_corr * decay ** i, final_corr)
             moved = src @ R.T + t[None, :]
@@ -141,11 +151,14 @@ def icp_align(src, src_valid, dst, dst_valid, iters: int = 40,
             Rn, tn = _umeyama(src, dst[n1], w)
             done = ((torch.linalg.vector_norm(tn - t) < 1e-4)
                     & (torch.linalg.vector_norm(Rn - R) < 1e-5))
-            if corr > final_corr * 1.001:
+            gated = corr > final_corr * 1.001
+            if gated:
                 done = torch.zeros_like(done)
             R = torch.where(active, Rn, R)
             t = torch.where(active, tn, t)
+            live = live + active.to(torch.int32)
             active = active & ~done
+        span["live"] = live
 
         moved = src @ R.T + t[None, :]
         _, d2 = top_k_nn(moved, src_valid, dst, dst_valid, k=1)

@@ -17,25 +17,29 @@ Per mapped scan (throttled to mapping_process_interval, the reference's
 Branches the host knows stay on the host: which scans are mapped (the
 cadence, `plan_chunk`) and whether the map is still empty (the first
 mapping step ever).  Branches that depend on device values — the keyframe
-gate and the compaction rebuild — are computed and selected on the card
-(utils/tree.cond), so a chunk reads nothing back to the host.
+gate and the compaction rebuild — are decided on the host as well: it
+reads the predicate and issues only the branch taken (utils/tree.cond),
+on every device, so the card computes nothing it then throws away.  A
+mapping step reads the keyframe gate, the rebuild inside a keyframe add,
+and the scan-to-map loop's stop and re-gather (mapping/scan2map.py).
 
 At the 1 Hz loop cadence (`loop_attempts`) a loop-closure attempt follows
 the mapping step (`_loop_step_impl`): detection, ICP and polish against the
 old pass (graph/loop_closure.py); an accepted edge enters the pose graph,
 and when its implied correction is large enough the graph is re-solved
 (graph/pose_graph.py), every keyframe pose rewritten and the window map
-rebuilt (performLoopClosure + correctPoses, :1114-1186, 1767-1795).  On
-the card the attempt's branches (align or skip, solve or not, the
-whole-solve guard) are computed and selected as well; which scans attempt
-a loop is host cadence.  `final_solve` re-solves over every edge at the
-end of a run.
+rebuilt (performLoopClosure + correctPoses, :1114-1186, 1767-1795).  The
+attempt's branches, align or skip and solve or not, are read and decided
+on the host (an attempt with no candidate makes two reads and issues
+neither); the whole-solve guard, inside a kept solve, stays a select on
+the device.  Which scans attempt a loop is host cadence.  `final_solve`
+re-solves over every edge at the end of a run.
 
 Both local maps are ported: the recent window (`loop_closure_enabled`,
 `lc_map_mode="recent"`) and the radius-selected map (loop closure off, the
 reference's loopClosureEnableFlag=false mode, or `lc_map_mode="radius"`),
 which each mapping step re-selects around the warm-start pose and rebuilds
-when the selected set changes (computed and selected on the card as well).
+when the selected set changes (decided on the host as well).
 Above 1024 keyframe slots every solve is the sparse one
 (`pose_graph.optimize_cg`), as in the reference.  `shard_store_over`
 splits the keyframe store's clouds along the keyframe axis over a mesh
@@ -241,8 +245,7 @@ def _mapping_step_impl(state: MapperState, odo_pos, odo_quat, time,
                                        s_ok, o_ds, o_ok, gp)
                 # periodic compaction: tombstone leak, cell overflow and float
                 # sum drift are bounded by a full rebuild every
-                # map_rebuild_interval keyframes (computed and selected on the
-                # card)
+                # map_rebuild_interval keyframes
                 need = (lm.pushes >= cfg.map_rebuild_interval) | lm.rebuild_due
                 ids, okm, wslots = lmn.recent_window_ids(store2, n_window)
                 lm = cond(need, lambda: lmn.rebuild_window(
@@ -381,8 +384,9 @@ def _mapping_chunk_impl(state: MapperState, rns, qbns, ts, cxyz, cval, sxyz,
     function of the state: a mapping step on each scan `map_flags` marks,
     then a loop attempt on each `loop_flags` marks (host bools from
     `plan_chunk`), then every scan's fused pose with the correction current
-    at that scan (process -> loop -> fuse, the streaming order).  Nothing is
-    read back to the host.
+    at that scan (process -> loop -> fuse, the streaming order).  The host
+    reads only the predicates and loop flags that decide the steps' and
+    attempts' branches (utils/tree.cond, utils/device.may_stop).
 
     rns (K,3), qbns (K,4), ts (K,): the odometry's poses and scan times;
     c/s/o xyz, val: the chunk's clouds; imu_rp (K,2).  `has_map`: whether a
@@ -617,8 +621,9 @@ class LinsMapper:
         odometry outputs: a mapping step on each scan `map_flags` marks and
         a loop attempt on each `loop_flags` marks (both from plan_chunk),
         then every scan's fused pose with the correction current at that
-        scan (process -> loop -> fuse, the streaming order).  Nothing is
-        read back to the host.  Returns the fused (pos (K,3), quat (K,4))
+        scan (process -> loop -> fuse, the streaming order).  The host
+        reads only the flags that decide the branches and stops
+        (`_mapping_chunk_impl`).  Returns the fused (pos (K,3), quat (K,4))
         blocks.
 
         ts_dev: (K,) scan times on the device; clouds: the odometry's

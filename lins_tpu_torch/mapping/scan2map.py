@@ -18,11 +18,14 @@ coverage and the prune distance d2C) say when the pose has moved far enough
 that the cache could miss a point inside the 1 m acceptance ball; then the
 trip gathers again, so accepted correspondences equal brute force.
 
-The reference's while_loop runs `scan2map_iters` fixed trips here with the
-carry frozen after convergence (`iters` counts the active trips), and its
-re-gather `lax.cond` is computed and selected on the card: 2 K3 launches a
-trip besides the 2 of the initial gather, with no host read.  On the CPU
-the loop stops and the re-gather runs only when needed.
+The reference's while_loop (up to `scan2map_iters` trips, stopping on
+convergence) stops here as it does: the host reads `active` before each
+trip after the first (utils/device.may_stop), on every device, and its
+re-gather `lax.cond` is decided on the host as well (utils/tree.cond): 2
+K3 launches for the initial gather and 2 for each re-gather the bounds
+force, two host reads a trip after the first.  The carry is still frozen
+on the device where `active` is false, so the loop made to run every trip
+gives the same result bit for bit (`iters` counts the active trips).
 """
 from __future__ import annotations
 
@@ -37,7 +40,7 @@ from lins_tpu_torch.ops.grid_nn import (build_grid, gather_candidates,
                                         knn_from_candidates)
 from lins_tpu_torch.ops.lin3 import eigh_sym3x3, solve_sym3x3
 from lins_tpu_torch.utils.device import may_stop
-from lins_tpu_torch.utils.metrics import trace_scope
+from lins_tpu_torch.utils.metrics import host_read, trace_scope
 from lins_tpu_torch.utils.tree import cond
 
 
@@ -149,7 +152,8 @@ def scan_to_map_grids(t0, q0, corner_pts, corner_valid, surf_pts, surf_valid,
     lidar_mapping_node.cpp:1635-1652) against prebuilt map hash grids.
     Returns (t, q, iters, n_matches, n_refresh) — n_refresh the number of
     in-loop re-gathers the staleness bounds forced.  Recorded as the span
-    `mapper.scan_to_map` (`trips` run, `live` = `iters`), each trip's
+    `mapper.scan_to_map` (`trips` issued, `live` = `iters`, `reads` the
+    host reads of its stop and `read_ns` their wait), each trip's
     re-gather as `mapper.regather`."""
     with trace_scope("mapper.scan_to_map") as span:
         dtype, dev = t0.dtype, t0.device
@@ -196,9 +200,13 @@ def scan_to_map_grids(t0, q0, corner_pts, corner_valid, surf_pts, surf_valid,
         iters, n_sel_out, n_refresh = zero, zero, zero
         active = torch.ones((), dtype=torch.bool, device=dev)
         proj = eye6
+        span.update(reads=0, read_ns=0)
         for it in range(cfg.scan2map_iters):
-            if may_stop(active):
-                break
+            if it:
+                with host_read(span):
+                    stop = may_stop(active)
+                if stop:
+                    break
             span["trips"] = it + 1
             pc, ps = world(t, q)
             nn_c, d2_c, nn_s, d2_s = rerank_both(pc, ps, G)

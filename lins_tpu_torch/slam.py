@@ -94,10 +94,10 @@ class LinsSlam:
         process `chunk` scans per `LinsOdometry.add_scan_chunk` call, the
         mapper following at its cadence on the chunk's outputs
         (`LinsMapper.process_chunk`), with no host->device transfer inside
-        the chunked loop and no host read but the odometry's loop and
-        fallback flags.  Scans past the last full chunk
-        are streamed through `add_scan`.  The result equals streaming up to
-        float rounding.
+        the chunked loop and no host read but the flags that decide the
+        odometry's and the mapper's loops and branches.  Scans past the
+        last full chunk are streamed through `add_scan`.  The result equals
+        streaming up to float rounding.
         """
         jobs, tail = self.stage_replay(data, n_scans, chunk)
         for job in jobs:

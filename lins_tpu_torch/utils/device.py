@@ -29,12 +29,11 @@ def resolve_dtype(dtype=None) -> torch.dtype:
 
 
 def may_stop(active: torch.Tensor) -> bool:
-    """Whether a fixed-trip loop may end before its last trip.
-
-    The data-dependent loops (IESKF iterations, GN ICP) run a fixed number
-    of trips with their carry frozen once a lane has converged or diverged,
-    which gives the same result as stopping.  On the card every trip runs,
-    so no trip waits for a host read of the flag; on the CPU, where the read
-    is free, the loop stops once no lane is active.
-    """
-    return active.device.type == "cpu" and not bool(torch.any(active))
+    """Whether a data-dependent loop (the scan-to-map GN, the loop ICP)
+    ends before its next trip: the host reads the 0-dim flag `active` (one
+    copy, which waits for the trip that set it), on every device, and
+    issues no trip once it is false.  Call it before each trip after the
+    first, since `active` starts true.  The loops still freeze their carry
+    on the device where `active` is false, so a loop made to run all its
+    trips (as the tests force it) gives the same result, bit for bit."""
+    return not bool(active)

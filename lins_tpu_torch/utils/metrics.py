@@ -157,3 +157,17 @@ def trace_scope(name: str, scan: int | None = None, **attrs):
         t1 = time.time_ns()
         rec._open.pop()
         rec.add((name, t0, t1, sid, parent, root, scan, attrs))
+
+
+@contextlib.contextmanager
+def host_read(span: dict):
+    """A host read of device values made inside the block (a copy that
+    waits for the work that set them), counted in the attributes `span` of
+    an open `trace_scope`: one more `reads`, and its wait added to
+    `read_ns`."""
+    t0 = time.time_ns()
+    try:
+        yield
+    finally:
+        span["reads"] = span.get("reads", 0) + 1
+        span["read_ns"] = span.get("read_ns", 0) + time.time_ns() - t0

@@ -6,7 +6,7 @@ import dataclasses
 
 import torch
 
-from lins_tpu_torch.utils.metrics import trace_scope
+from lins_tpu_torch.utils.metrics import host_read, trace_scope
 
 
 def tree_map(fn, tree, *rest):
@@ -39,24 +39,30 @@ def tree_where(cond, a, b):
 def cond(pred: torch.Tensor, branch, keep, name: str):
     """`branch()` where the 0-dim bool `pred` holds, else `keep` (the
     reference package's `lax.cond(pred, branch, identity)`), inside a span
-    `name` whose `kept` is `pred`.
+    `name`.
 
-    On the card both sides are computed and selected on the device, so no
-    flag is read back to the host, and the span of a false `pred` is work
-    computed and discarded; on the CPU, where the read is free, `branch`
-    runs only when it is taken.
+    The host reads `pred` (one copy, which waits for the work that set it)
+    on every device and issues only the branch it names: the span records
+    `kept` as that host bool, `reads` 1 and the read's wait in `read_ns`.
+    A branch not taken is never issued, so nothing is computed and thrown
+    away.  Every process of a sharded run reads the same replicated
+    predicate, so all enter the same branch and its collectives.
     """
-    with trace_scope(name, kept=pred):
-        return _decide(pred, branch, keep)
+    with trace_scope(name, kept=pred) as span:
+        return _decide(pred, branch, keep, span)
 
 
-def _decide(pred: torch.Tensor, branch, keep):
-    if pred.device.type == "cpu":
-        return branch() if bool(pred) else keep
-    return select_cond(pred, branch, keep)
+def _decide(pred: torch.Tensor, branch, keep, span):
+    with host_read(span):
+        taken = bool(pred)
+    span["kept"] = taken
+    return branch() if taken else keep
 
 
-def select_cond(pred: torch.Tensor, branch, keep):
-    """`cond` as the card runs it, on any device: both sides computed,
-    selected leaf by leaf."""
+def select_cond(pred: torch.Tensor, branch, keep, span=None):
+    """`cond` computed and selected, on any device: both sides computed,
+    then selected leaf by leaf on the device with no host read (the form
+    the card ran before its branches were decided on the host, kept as
+    the reference the equality tests hold `cond` to).  In `cond`'s place
+    it leaves the span's `kept` the device flag, read only at export."""
     return tree_where(pred, branch(), keep)

@@ -38,13 +38,13 @@ def _host_syncs(fn):
     return sites, spans
 
 
-def _assert_odometry_reads(sites, spans):
-    """Every host sync at the odometry's read sites, as many as the `reads`
-    of the spans; none in the front end, the mapper or the loop closure."""
+def _assert_read_sites(sites, spans):
+    """Every host sync at the odometry's and the mapper's read sites, as
+    many as the `reads` of the spans; none in the front end."""
     import chip_smoke
 
     reads = sum(s["attrs"].get("reads", 0) for s in spans)
-    assert all(site.startswith(chip_smoke.ODOMETRY_READ_SITES)
+    assert all(site.startswith(chip_smoke.READ_SITES)
                for site in sites), dict(sites)
     assert sum(sites.values()) == reads > 0, (dict(sites), reads)
 
@@ -261,9 +261,10 @@ def test_replay_on_card_matches_cpu(cuda_device):
 
 
 @pytest.mark.cuda
-def test_chunk_syncs_only_at_odometry_reads(cuda_device):
-    """A chunk's host syncs are the odometry's reads of its loop and
-    fallback flags, as many as its spans count."""
+def test_chunk_syncs_only_at_read_sites(cuda_device):
+    """An odometry chunk's host syncs are the reads of its loop and
+    fallback flags at the port's read sites, as many as its spans
+    count."""
     from lins_tpu_torch.odometry import LinsOdometry
 
     cfg = TINY.replace(use_pallas=True)
@@ -287,7 +288,7 @@ def test_chunk_syncs_only_at_odometry_reads(cuda_device):
         chunk=6, with_imu=True)
     sites, spans = _host_syncs(lambda: odo.add_scan_chunk(ts, xs, ns,
                                                            imu=imu))
-    _assert_odometry_reads(sites, spans)
+    _assert_read_sites(sites, spans)
     assert len(odo.trajectory) == 7
 
 
@@ -491,9 +492,10 @@ def test_mapping_replay_on_card_matches_cpu(cuda_device):
 def test_loop_replay_on_card(cuda_device):
     """Full SLAM with loop closure on the card (TINY sensor, the revisiting
     circuit of tests/test_slam_integration.py): every chunk's host syncs
-    the odometry's reads alone, loop attempts aligned with K3, at least one
-    loop closed, one edge per keyframe after the first plus one per loop;
-    the first scans within 5 cm of float64 on the CPU."""
+    at the odometry's and the mapper's read sites, as many as its spans'
+    `reads`, loop attempts that found a candidate aligned with K3, at
+    least one loop closed, one edge per keyframe after the first plus one
+    per loop; the first scans within 5 cm of float64 on the CPU."""
     from lins_tpu_torch.datasets.synthetic import generate_sequence
     from lins_tpu_torch.slam import LinsSlam
 
@@ -510,7 +512,7 @@ def test_loop_replay_on_card(cuda_device):
     plain_before = (select.select_candidates_plain.calls,
                     label.label_components_plain.calls)
     for job in jobs:
-        _assert_odometry_reads(*_host_syncs(
+        _assert_read_sites(*_host_syncs(
             lambda: card.run_chunk(job)))
     for j in tail:
         card.add_scan(float(data["scan_times"][j]) + cfg.scan_period,

@@ -1,17 +1,19 @@
 """The port's span recorder (`utils/metrics.RECORDER`, `trace_scope`) and
 the spans at the stage boundaries: ids, roots and scan indices on a TINY
 replay and on streaming, the ring's bound, device attributes read only at
-export, the `kept` flags and the discarded time with the card's form of
-the mapper's branches, the odometry's loops and fallback decided on the
-host against their full-trip form, and the benchmark's seven readers of
-the spans on TINY traced runs.  The `cuda` tests run a warm VLP-16 chunk on
-the card with the recorder recording and count its host syncs by site,
-and hold a chunk to its full-trip form bit for bit.  This file imports
-neither JAX nor the reference package:
+export, the `kept` flags, `reads` and the discarded time of the mapper's
+branches and loops decided on the host against their computed-and-selected
+form, the odometry's loops and fallback decided on the host against their
+full-trip form, and the benchmark's seven readers of the spans on TINY
+traced runs.  The `cuda` tests run a warm VLP-16 chunk on the card with the
+recorder recording and count its host syncs by site, and hold a chunk to
+its full-trip and selected forms bit for bit.  This file imports neither
+JAX nor the reference package:
 
     python -m pytest --noconftest tests/test_torch_trace.py -q
 """
 import json
+import traceback
 
 import numpy as np
 import pytest
@@ -48,12 +50,18 @@ READS = {"odometry.frontend_ms_per_scan.replay": "odometry.frontend",
          "loop.ms_per_attempt.live": "loop.attempt",
          "dispatch.discarded_ms_per_scan.replay": None,
          "dispatch.discarded_ms_per_scan.live": None}
-# the loops and their trips on the card: the mapper's and the loop
-# closure's run all theirs (None: stopped by the host's reads, every trip
-# issued live)
-LOOPS = {"odometry.ieskf": None, "odometry.gn_icp": None,
+# the loops, each stopped by the host's reads (every trip issued live), and
+# their most trips
+LOOPS = {"odometry.ieskf": TINY.num_iter, "odometry.gn_icp": TINY.num_iter,
          "mapper.scan_to_map": TINY.scan2map_iters,
          "loop.icp": TINY.loop_icp_iters}
+# the spans of the mapper's and the loop closure's branches (`tree.cond`)
+CONDS = ("mapper.radius_rebuild", "mapper.window_rebuild",
+         "mapper.keyframe_add", "mapper.regather", "loop.align", "loop.solve")
+# the host reads of a tensor, in `_Reads`' form
+HOST_READS = {torch.Tensor.__bool__, torch.Tensor.item, torch.Tensor.tolist,
+              torch.Tensor.__int__, torch.Tensor.__float__,
+              torch.Tensor.__index__, torch.Tensor.numpy}
 
 
 @pytest.fixture(scope="module")
@@ -71,10 +79,10 @@ def _recorded(fn):
     return rec.spans()
 
 
-def _card_form(mp):
+def _selected_form(mp):
     """The mapper's and the loop closure's branches computed and selected,
-    their fixed-trip loops running all their trips, as on the card (the
-    odometry decides on the host there as here)."""
+    their loops running all their trips with the carry frozen, as the card
+    ran them before it decided them on the host."""
     mp.setattr(tree, "_decide", tree.select_cond)
     for mod in (scan2map, loop_closure):
         mp.setattr(mod, "may_stop", lambda active: False)
@@ -95,31 +103,71 @@ def _full_trips(mp):
     mp.setattr(est, "fallback_or_keep", selected)
 
 
-def _odometry_reads(name, trips):
-    """The host reads of an odometry loop that issued `trips`: one before
-    each trip after the first, and the IESKF's one after a last trip that
-    did not stop it (it brings `diverged` for the fallback)."""
+def _loop_reads(name, trips):
+    """The host reads of a loop that issued `trips`: one before each trip
+    after the first (the loop ICP's only once its gate is the finest), one
+    more that stopped it before its last, and the IESKF's one after a last
+    trip that did not stop it (it brings `diverged` for the fallback)."""
     if name == "odometry.ieskf":
         return trips
-    return min(trips, TINY.num_iter - 1)
+    if name == "loop.icp":
+        n = TINY.loop_icp_iters
+        decay = (1.0 / TINY.loop_icp_max_corr) ** (
+            1.0 / max(n - 1 - min(6, n // 2), 1))
+        gated = sum(TINY.loop_icp_max_corr * decay ** i > 1.001
+                    for i in range(n))
+        return max(trips - 1 - gated, 0) + (trips < n)
+    return min(trips, LOOPS[name] - 1)
 
 
-@pytest.fixture(scope="module")
-def replay_spans(data):
-    return _recorded(lambda: LinsSlam(TINY, device="cpu", dtype=F64)
-                     .run_replay(data, chunk=CHUNK))
+class _Reads(TorchFunctionMode):
+    """Every host read of a tensor made inside, as (the innermost open
+    span's id, the innermost call site in lins_tpu_torch)."""
+
+    def __init__(self):
+        super().__init__()
+        self.reads = []
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        if func in HOST_READS:
+            port = [f for f in traceback.extract_stack()[:-1]
+                    if "lins_tpu_torch" in f.filename]
+            site = (f"{port[-1].filename.split('lins_tpu_torch')[-1]}:"
+                    f"{port[-1].name}" if port else "")
+            opened = metrics.RECORDER._open
+            self.reads.append((opened[-1][0] if opened else 0, site))
+        return func(*args, **(kwargs or {}))
 
 
-@pytest.fixture(scope="module")
-def card_run(data):
-    """(the spans, the LinsSlam) of the TINY replay in the card's form."""
-    out = {}
+def _replay(data, form=None):
+    """(the spans, the LinsSlam, the host reads by `_Reads`) of the TINY
+    replay, in `form` when given."""
+    out, reads = {}, _Reads()
     with pytest.MonkeyPatch.context() as mp:
-        _card_form(mp)
-        out["spans"] = _recorded(lambda: out.setdefault(
-            "slam", LinsSlam(TINY, device="cpu", dtype=F64)
-            .run_replay(data, chunk=CHUNK)))
-    return out["spans"], out["slam"]
+        if form:
+            form(mp)
+        with reads:
+            spans = _recorded(lambda: out.setdefault(
+                "slam", LinsSlam(TINY, device="cpu", dtype=F64)
+                .run_replay(data, chunk=CHUNK)))
+    return spans, out["slam"], reads.reads
+
+
+@pytest.fixture(scope="module")
+def replay_run(data):
+    """The TINY replay, its branches and loops decided on the host."""
+    return _replay(data)
+
+
+@pytest.fixture(scope="module")
+def replay_spans(replay_run):
+    return replay_run[0]
+
+
+@pytest.fixture(scope="module")
+def selected_run(data):
+    """The TINY replay in `_selected_form`."""
+    return _replay(data, _selected_form)
 
 
 def _check_tree(spans):
@@ -236,7 +284,8 @@ def test_device_attributes_read_at_export_in_one_read(monkeypatch):
 
 
 def test_card_cond_adds_no_operation(monkeypatch):
-    """`cond` in the card's form calls what `select_cond` calls, no more."""
+    """`cond` in its selected form calls what `select_cond` calls, no
+    more."""
     pred = torch.tensor(False)
     keep = (torch.zeros(3), torch.ones(2))
 
@@ -269,8 +318,13 @@ def test_discarded_sum_counts_each_piece_once():
     assert _program.discarded_ns(spans) == pytest.approx(300 + 100 + 50)
 
 
-def test_card_form_kept_flags_and_discarded(card_run, replay_spans):
-    spans, slam = card_run
+def test_card_form_kept_flags_and_discarded(replay_run, selected_run):
+    """The card's form, every branch and loop decided on the host: each
+    `cond` span's `kept` a host bool with one read, each loop's trips all
+    live with its reads as issued, nothing discarded but the reads of the
+    branches not taken; the same run in the selected form computed and
+    discarded some, and gives the same poses and state bit for bit."""
+    spans, slam, _ = replay_run
     _check_tree(spans)
     conds = [s for s in spans if "kept" in s["attrs"]]
     assert {s["name"] for s in conds} >= {
@@ -279,17 +333,14 @@ def test_card_form_kept_flags_and_discarded(card_run, replay_spans):
     assert all(type(s["attrs"]["kept"]) is bool for s in conds)
     assert any(s["attrs"]["kept"] for s in conds)
     assert not all(s["attrs"]["kept"] for s in conds)
-    # the mapper's and the loop closure's loops ran all their trips, the
-    # odometry's stopped on the host's reads; `live` is the loop's count
+    # every loop stopped on the host's reads, `live` its count
     for s in spans:
         a = s["attrs"]
-        if LOOPS.get(s["name"]):
-            assert a["trips"] == LOOPS[s["name"]], s
-            if s["name"] != "loop.icp":
-                assert 0 < a["live"] <= a["trips"]
-        elif s["name"] in LOOPS:
-            assert 0 < a["trips"] == a["live"] <= TINY.num_iter, s
-            assert a["reads"] == _odometry_reads(s["name"], a["trips"]), s
+        if s["name"] in LOOPS:
+            assert 0 < a["trips"] == a["live"] <= LOOPS[s["name"]], s
+            assert a["reads"] == _loop_reads(s["name"], a["trips"]), s
+        elif s["name"] in CONDS:
+            assert a["reads"] == 1 and a["read_ns"] >= 0, s
         elif s["name"] == "odometry.fallback":
             assert a["reads"] == 0 and a["kept"] is False, s
     # one IESKF update a RUNNING scan, streamed or chunked
@@ -303,19 +354,119 @@ def test_card_form_kept_flags_and_discarded(card_run, replay_spans):
             kept = [c for c in spans if s2m and c["parent"] == s2m[0]["id"]
                     and c["attrs"].get("kept")]
             assert s["attrs"]["n_refresh"] == len(kept)
-    # the discarded time: some (the mapper's), less than the run's; on the
-    # CPU's taken branches no frozen trip runs, so only branches not taken
-    # (their spans all but empty) count
-    run_ns = sum(s["end_ns"] - s["start_ns"] for s in spans
-                 if s["parent"] == 0)
-    card = _program.discarded_ns(spans)
-    assert 0 < card < run_ns
-    taken = _program.discarded_ns(replay_spans)
-    dropped = sum(s["end_ns"] - s["start_ns"] for s in replay_spans
+    # the discarded time: only the branches not taken (their spans hold
+    # their read alone), where the selected form discards some, less than
+    # its run
+    decided = _program.discarded_ns(spans)
+    dropped = sum(s["end_ns"] - s["start_ns"] for s in spans
                   if s["attrs"].get("kept") is False)
-    assert taken == pytest.approx(dropped)
-    assert all(s["attrs"]["trips"] == s["attrs"]["live"]
-               for s in replay_spans if "live" in s["attrs"])
+    assert decided == pytest.approx(dropped)
+    sel_spans, sel_slam, _ = selected_run
+    run_ns = sum(s["end_ns"] - s["start_ns"] for s in sel_spans
+                 if s["parent"] == 0)
+    assert decided < _program.discarded_ns(sel_spans) < run_ns
+    assert any(s["attrs"]["trips"] > s["attrs"]["live"] for s in sel_spans
+               if s["name"] == "mapper.scan_to_map")
+    # and both forms give the same trajectories and mapper state
+    for a, b in zip(slam.trajectory_arrays(), sel_slam.trajectory_arrays()):
+        np.testing.assert_array_equal(a, b)
+    tree_map(lambda x, y: torch.testing.assert_close(x, y, rtol=0, atol=0,
+                                                     equal_nan=True),
+             slam.mapper.state, sel_slam.mapper.state)
+
+
+def test_mapper_reads_as_issued(replay_run):
+    """Every host read inside a mapping step or a loop attempt is one its
+    spans count in `reads`, made at `tree.cond`'s or `may_stop`'s site
+    (the front end's `div_const` reads a constant made on the host, no
+    device value), and the discarded time is under 1% of the mapper's."""
+    spans, _, reads = replay_run
+    kids = {}
+    for s in spans:
+        kids.setdefault(s["parent"], []).append(s)
+
+    def inside(s):
+        out = [s]
+        for c in kids.get(s["id"], []):
+            out += inside(c)
+        return out
+
+    mapper = [s for s in spans if s["name"] in ("mapper.step",
+                                                "loop.attempt")]
+    assert mapper
+    said_all = 0
+    for s in mapper:
+        sub = inside(s)
+        ids = {c["id"] for c in sub}
+        made = [site for sid, site in reads if sid in ids
+                and not site.endswith(":div_const")]
+        said = sum(c["attrs"].get("reads", 0) for c in sub)
+        assert len(made) == said, (s, made)
+        assert set(made) <= {"/utils/tree.py:_decide",
+                             "/utils/device.py:may_stop"}, made
+        said_all += said
+    assert said_all > len(mapper)
+    mapper_ns = sum(s["end_ns"] - s["start_ns"] for s in mapper)
+    assert _program.discarded_ns(spans) < 0.01 * mapper_ns
+
+
+@pytest.mark.parametrize("taken", [False, True])
+def test_cond_issues_only_the_taken_branch(monkeypatch, taken):
+    """`cond` reads its predicate once and issues the branch only when it
+    is taken; its span records the read."""
+    rec = metrics.SpanRecorder()
+    monkeypatch.setattr(metrics, "RECORDER", rec)
+    keep = (torch.zeros(3), torch.ones(2))
+
+    def branch():
+        return keep[0] + 1, keep[1] * 2
+
+    pred, ops = torch.tensor(taken), _Ops()
+    with ops:
+        out = tree.cond(pred, branch, keep, "probe")
+    want = _Ops()
+    with want:
+        branch()
+    assert ops.calls == [torch.Tensor.__bool__] + (want.calls if taken
+                                                   else [])
+    assert all(torch.equal(a, b) for a, b in zip(
+        out, branch() if taken else keep))
+    attrs, = [s["attrs"] for s in rec.spans()]
+    assert attrs["kept"] is taken and attrs["reads"] == 1
+
+
+def test_icp_stops_on_host_reads():
+    """The loop ICP stops on the host's reads once its gate is the finest
+    (reads as `_loop_reads` counts them) and gives what all its trips
+    give, bit for bit."""
+    gen = torch.Generator().manual_seed(3)
+    dst = torch.rand(400, 3, generator=gen, dtype=F64) * 8.0
+    ang = torch.tensor(0.05, dtype=F64)
+    c, s_ = torch.cos(ang), torch.sin(ang)
+    R0 = torch.stack([torch.stack([c, -s_, 0 * c]),
+                      torch.stack([s_, c, 0 * c]),
+                      torch.tensor([0.0, 0.0, 1.0], dtype=F64)])
+    src = (dst[:300] - torch.tensor([0.2, -0.1, 0.05], dtype=F64)) @ R0
+    ok_s, ok_d = torch.ones(300, dtype=torch.bool), torch.ones(
+        400, dtype=torch.bool)
+
+    def run():
+        return loop_closure.icp_align(src, ok_s, dst, ok_d,
+                                      iters=TINY.loop_icp_iters,
+                                      max_corr=TINY.loop_icp_max_corr)
+
+    out = []
+    spans = _recorded(lambda: out.append(run()))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(loop_closure, "may_stop", lambda active: False)
+        full_spans = _recorded(lambda: out.append(run()))
+    a, = [s["attrs"] for s in spans if s["name"] == "loop.icp"]
+    b, = [s["attrs"] for s in full_spans if s["name"] == "loop.icp"]
+    assert a["trips"] == a["live"] < TINY.loop_icp_iters
+    assert a["reads"] == _loop_reads("loop.icp", a["trips"]) > 0
+    assert b["trips"] == TINY.loop_icp_iters and b["live"] == a["live"]
+    for x, y in zip(*out):
+        assert torch.equal(x, y)
 
 
 # the scans of the full-trip comparison (its form costs 30 + 30 trips a scan)
@@ -474,12 +625,12 @@ def _vlp16_chunks(n_chunks, **kw):
 
 
 @pytest.mark.cuda
-def test_warm_chunk_syncs_only_at_odometry_reads():
+def test_warm_chunk_syncs_only_at_read_sites():
     """A warm VLP-16 chunk (K = 32) on the card under PyTorch's sync debug
     mode (`chip_smoke.count_host_syncs`) with the recorder recording: every
-    host sync at the odometry's read sites, as many as its spans' `reads`,
-    none in the front end, the mapper or the loop closure; each IESKF
-    stopped at its live trips; the spans read back after."""
+    host sync at the odometry's and the mapper's read sites, as many as
+    their spans' `reads`, none in the front end; every loop stopped at its
+    live trips; the spans read back after."""
     import chip_smoke
 
     slam, jobs = _vlp16_chunks(2)
@@ -491,15 +642,24 @@ def test_warm_chunk_syncs_only_at_odometry_reads():
         torch.cuda.synchronize()
     names = {s["name"] for s in spans}
     assert {"slam.chunk", "odometry.ieskf", "odometry.fallback",
-            "mapper.step", "mapper.regather", "loop.attempt"} <= names
+            "mapper.step", "mapper.scan_to_map", "mapper.regather",
+            "mapper.keyframe_add", "loop.attempt", "loop.align",
+            "loop.solve"} <= names
     reads = sum(s["attrs"].get("reads", 0) for s in spans)
-    assert all(site.startswith(chip_smoke.ODOMETRY_READ_SITES)
+    mapper = sum(s["attrs"].get("reads", 0) for s in spans
+                 if s["name"].startswith(("mapper.", "loop.")))
+    assert all(site.startswith(chip_smoke.READ_SITES)
                for site in sites), sites
-    assert sum(sites.values()) == reads > 0
+    assert sum(sites.values()) == reads > mapper > 0
     ieskf_spans = [s["attrs"] for s in spans if s["name"] == "odometry.ieskf"]
     assert len(ieskf_spans) == 32
     for a in ieskf_spans:
         assert a["trips"] == a["live"] == a["reads"], a
+    for s in spans:
+        if s["name"] in LOOPS:
+            assert s["attrs"]["trips"] == s["attrs"]["live"], s
+        if s["name"] in CONDS:
+            assert s["attrs"]["reads"] == 1, s
     json.dumps(spans)
     assert np.isfinite([s["end_ns"] - s["start_ns"] for s in spans]).all()
 
@@ -534,3 +694,75 @@ def test_card_chunk_equals_full_trips():
     for m, n in zip(decided["metrics"], full["metrics"]):
         for key in ("iters", "n_surf", "n_corner", "residual", "diverged"):
             assert m[key] == n[key], key
+
+
+def _mapper_forms(slam, job):
+    """The mapper over one staged chunk (`job`) twice from the same state,
+    its branches and loops decided on the host, then in `_selected_form`:
+    the fused poses, the final mapper state, the steps' metrics and the
+    attempts' infos of each."""
+    (ts, xyz_k, n_k, imu), (ts_dev, mf, lf, rp_dev) = job
+    odo, m = slam.odometry, slam.mapper
+    odo.add_scan_chunk(ts, xyz_k, n_k, imu=imu)
+    assert mf.any() and lf.any()
+    start = tree_map(torch.clone, m.state)
+    has_map, n_steps, n_loops = m._has_map, len(m.metrics), len(m.loop_info)
+    runs = []
+    for selected in (False, True):
+        m.state, m._has_map = tree_map(torch.clone, start), has_map
+        with pytest.MonkeyPatch.context() as mp:
+            if selected:
+                _selected_form(mp)
+            pos, quat = m.process_chunk(ts, *odo.last_chunk_poses,
+                                        odo.last_chunk_clouds, ts_dev, mf, lf,
+                                        imu_rp_dev=rp_dev)
+        runs.append(dict(pos=pos, quat=quat, state=m.state,
+                         metrics=m.metrics[n_steps:],
+                         loops=m.loop_info[n_loops:]))
+        del m.metrics[n_steps:], m.loop_info[n_loops:]
+        del m.trajectory[len(m.trajectory) - int(mf.sum()):]
+    return runs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("drive", ["vlp16", "hdl64-circuit"])
+def test_card_chunk_equals_selected_mapper(drive):
+    """A warm chunk's mapping steps and loop attempts on the card, their
+    branches and loops decided on the host, against the same chunk with
+    every branch computed and selected and every trip run (the card's form
+    before; `_selected_form`) from the same state, bit for bit: a VLP-16
+    chunk with mapping steps and attempts that find nothing, and an HDL-64
+    stretch of the revisiting circuit whose attempts find a loop."""
+    if drive == "vlp16":
+        slam, jobs = _vlp16_chunks(2)
+        warm, job = jobs[:1], jobs[1]
+    else:
+        if not torch.cuda.is_available():
+            pytest.skip("needs an NVIDIA GPU")
+        from lins_tpu_torch.config import HDL64
+
+        import chip_smoke
+
+        cfg = HDL64.replace(use_pallas=True, use_pallas_select=True,
+                            loop_time_gate=4.0)
+        data = syn.generate_sequence(cfg, n_scans=6 + 3 * 32,
+                                     **chip_smoke.SEQ_H)
+        slam = LinsSlam(cfg)
+        slam.warmup()
+        jobs, _ = slam.stage_replay(data, chunk=32, min_streamed=6)
+        warm, job = jobs[:2], jobs[2]
+    for j in warm:
+        slam.run_chunk(j)
+    decided, selected = _mapper_forms(slam, job)
+    found = [bool(i["found"]) for i in decided["loops"]]
+    assert found and (any(found) if drive != "vlp16" else not any(found))
+    assert torch.equal(decided["pos"], selected["pos"])
+    assert torch.equal(decided["quat"], selected["quat"])
+    same = dict(rtol=0, atol=0, equal_nan=True)
+    tree_map(lambda x, y: torch.testing.assert_close(x, y, **same),
+             decided["state"], selected["state"])
+    for a, b in zip(decided["metrics"] + decided["loops"],
+                    selected["metrics"] + selected["loops"], strict=True):
+        assert a.keys() == b.keys()
+        for k in a:
+            torch.testing.assert_close(a[k], b[k], **same)
